@@ -1,0 +1,98 @@
+"""Flax msgpack checkpoints -> the port's state_dicts.
+
+Counterpart of the JAX package's train/selfsup.py `load_matcher_params`.
+The checkpoint is decoded with the pure-Python utils/msgpack_lite.py, and
+each flax leaf maps by name onto the port's module tree:
+
+  conv `kernel` (kh, kw, in, out)  -> `weight` (out, in, kh, kw)
+  dense `kernel` (in, out)         -> `weight` (out, in)
+  `scale` (BatchNorm, LayerNorm)   -> `weight`
+  `bias`                           -> `bias`
+  batch_stats `mean` / `var`       -> `running_mean` / `running_var`
+
+Every tensor is cast to float32, as the JAX loader casts to its fp32
+template. Conversion is strict: an unused leaf or a parameter left unfilled
+raises.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Iterator, Tuple
+
+import torch
+
+from .msgpack_lite import msgpack_restore
+
+_STAT_NAMES = {"mean": "running_mean", "var": "running_var"}
+
+
+def _leaves(tree, prefix=()) -> Iterator[Tuple[tuple, object]]:
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _leaves(v, prefix + (k,))
+        else:
+            yield prefix + (k,), v
+
+
+def _convert_leaf(collection: str, path: tuple, value: torch.Tensor):
+    *mods, leaf = path
+    if collection == "batch_stats":
+        if leaf not in _STAT_NAMES:
+            raise ValueError(f"unexpected batch_stats leaf {'/'.join(path)}")
+        return ".".join(mods + [_STAT_NAMES[leaf]]), value
+    if leaf == "kernel" and value.dim() == 4:
+        return ".".join(mods + ["weight"]), value.permute(3, 2, 0, 1)
+    if leaf == "kernel" and value.dim() == 2:
+        return ".".join(mods + ["weight"]), value.t()
+    if leaf == "scale":
+        return ".".join(mods + ["weight"]), value
+    if leaf == "bias":
+        return ".".join(mods + ["bias"]), value
+    raise ValueError(f"unexpected parameter leaf {'/'.join(path)}")
+
+
+def flax_variables_to_state_dict(variables: dict) -> Dict[str, torch.Tensor]:
+    """{"params": ..., "batch_stats": ...} flax tree -> fp32 state_dict."""
+    out: Dict[str, torch.Tensor] = {}
+    for collection, tree in variables.items():
+        if collection not in ("params", "batch_stats"):
+            raise ValueError(f"unexpected variable collection {collection!r}")
+        for path, value in _leaves(tree):
+            name, tensor = _convert_leaf(collection, path, value)
+            if name in out:
+                raise ValueError(f"two checkpoint leaves map onto {name}")
+            out[name] = tensor.float().contiguous()
+    return out
+
+
+def read_variables(path: str) -> dict:
+    """The flax variables of a checkpoint saved as {params: vars[, step]}."""
+    with open(path, "rb") as f:
+        raw = msgpack_restore(f.read())
+    return raw.get("params", raw)
+
+
+def match_state_dict(state: Dict[str, torch.Tensor],
+                     expected: Dict[str, torch.Tensor]):
+    """Raise unless `state` fills every entry of `expected` with the same
+    shape and has nothing else."""
+    unused = sorted(set(state) - set(expected))
+    missing = sorted(set(expected) - set(state))
+    bad = sorted(n for n in set(state) & set(expected)
+                 if tuple(state[n].shape) != tuple(expected[n].shape))
+    if unused or missing or bad:
+        raise ValueError(
+            f"checkpoint does not fit the model: {len(unused)} unused leaves "
+            f"{unused[:4]}, {len(missing)} missing parameters {missing[:4]}, "
+            f"{len(bad)} shape mismatches {bad[:4]}")
+
+
+def load_matcher_params(path: str, cfg=None) -> Dict[str, torch.Tensor]:
+    """The port's DetectorFreeMatcher state_dict from a flax checkpoint."""
+    from ..models.loftr import DetectorFreeMatcher, MatcherConfig
+
+    state = flax_variables_to_state_dict(read_variables(path))
+    with torch.device("meta"):
+        template = DetectorFreeMatcher(cfg or MatcherConfig()).state_dict()
+    match_state_dict(state, template)
+    return state

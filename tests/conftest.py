@@ -24,3 +24,8 @@ jax.config.update("jax_platforms", "cpu")
 
 assert jax.default_backend() == "cpu", "tests must run on the CPU platform"
 assert jax.device_count() == 8, "expected 8 virtual CPU devices for sharding tests"
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA card (skips without one)")

@@ -1,0 +1,289 @@
+"""The port's pair-matching engine against the JAX engine, and the port's
+import and device contracts.
+
+Run as a script, this file records the reference numbers that the GPU smoke
+test (chip_smoke.py) holds the port to: the dense fp32 JAX engine on the
+CPU, on generate_scene(seed=0, size=832, n_views=4), coarse_fine with
+matches rounded to a 4 px grid:
+
+    JAX_PLATFORMS=cpu python tests/test_torch_engine.py [--size 832]
+"""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+WEIGHTS = os.path.join(REPO, "weights", "demo_matcher_r5_bf16.msgpack")
+
+
+def _scene(size, n_views, seed=0):
+    from detectorfreesfm_tpu_torch.data.synthetic import (
+        SyntheticConfig,
+        generate_scene,
+    )
+
+    return generate_scene(seed, SyntheticConfig(size=size, n_views=n_views))
+
+
+def _epipolar_summary(raw, names, K, q, t):
+    """Per-pair valid counts and the pooled median symmetric epipolar
+    error (px) of the matches against the scene's ground truth."""
+    from detectorfreesfm_tpu_torch.data.synthetic import (
+        fundamental_matrix,
+        symmetric_epipolar_error,
+    )
+
+    counts, errs = {}, []
+    for (a, b), m in raw.items():
+        i, j = names.index(a), names.index(b)
+        F = fundamental_matrix(K[i], q[i], t[i], K[j], q[j], t[j])
+        counts[f"{a}-{b}"] = int(len(m["conf"]))
+        if len(m["conf"]):
+            errs.append(symmetric_epipolar_error(F, m["kpts0"], m["kpts1"]))
+    e = np.concatenate(errs) if errs else np.array([np.inf])
+    return counts, float(np.median(e))
+
+
+def _jax_engine_matches(images, names, pairs, size):
+    import jax
+    import jax.numpy as jnp
+    from flax import serialization
+
+    from detectorfreesfm_tpu.data.images import LoadedImage as JaxImage
+    from detectorfreesfm_tpu.match.engine import (
+        EngineConfig as JaxEngineConfig,
+        PairMatchingEngine as JaxEngine,
+    )
+    from detectorfreesfm_tpu.parallel.mesh import make_mesh
+
+    # The checkpoint's tree cast to fp32, as load_matcher_params casts it to
+    # its fp32 template, without that loader's template init.
+    with open(WEIGHTS, "rb") as f:
+        raw = serialization.msgpack_restore(f.read())["params"]
+    params = jax.tree_util.tree_map(lambda x: jnp.asarray(x, jnp.float32),
+                                    raw)
+    cfg = JaxEngineConfig(img_resize=size, fine_enabled=True,
+                          round_matches_ratio=4, batch_size=1)
+    engine = JaxEngine(cfg, params=params,
+                       mesh=make_mesh(1, devices=jax.devices()[:1]))
+    imgs = {n: JaxImage(images[i], np.ones(2, np.float32), (size, size),
+                        (size, size)) for i, n in enumerate(names)}
+    return engine.match_pairs(pairs, imgs)
+
+
+def _port_engine(size, fused, batch_size=2):
+    from detectorfreesfm_tpu_torch.match.engine import (
+        EngineConfig,
+        PairMatchingEngine,
+    )
+    from detectorfreesfm_tpu_torch.utils.checkpoint import load_matcher_params
+
+    cfg = EngineConfig(img_resize=size, fine_enabled=True,
+                       round_matches_ratio=4, fused_matching=fused,
+                       batch_size=batch_size)
+    params = load_matcher_params(WEIGHTS, cfg.matcher_config())
+    return PairMatchingEngine(cfg, params, device="cpu")
+
+
+def _port_images(images, names):
+    from detectorfreesfm_tpu_torch.data.images import from_array
+
+    return {n: from_array(images[i]) for i, n in enumerate(names)}
+
+
+def _rows(m):
+    return {tuple(r) for r in np.concatenate([m["kpts0"], m["kpts1"]],
+                                             1).tolist()}
+
+
+def _iou(a, b):
+    return len(a & b) / max(len(a | b), 1)
+
+
+@pytest.fixture(scope="module")
+def engine_outputs():
+    """3 views at 256 px through the JAX engine (dense) and the port's
+    engine, dense and fused (the kernels' plain versions on the CPU);
+    coarse_fine, 4 px rounding, batches of 2 so the last one is padded."""
+    from detectorfreesfm_tpu_torch.match.pairs import exhaustive_pairs
+
+    size = 256
+    images, _d, K, q, t = _scene(size, 3, seed=1)
+    names = [f"view_{i}" for i in range(3)]
+    pairs = exhaustive_pairs(names)
+    imgs = _port_images(images, names)
+    return dict(
+        pairs=pairs,
+        jax=_jax_engine_matches(images, names, pairs, size),
+        dense=_port_engine(size, fused=False).match_pairs(pairs, imgs),
+        fused=_port_engine(size, fused=True).match_pairs(pairs, imgs))
+
+
+def test_engine_matches_equal_jax_engine(engine_outputs):
+    """The same rounded matches pair for pair. Rounding to the 4 px grid
+    absorbs the fp32 summation-order differences of the fine offsets, so
+    the match sets are held to IoU >= 0.95, not to bit equality."""
+    pairs, jax_raw, port_raw = (engine_outputs[k]
+                                for k in ("pairs", "jax", "dense"))
+    assert set(port_raw) == set(pairs)
+    for p in pairs:
+        a, b = _rows(jax_raw[p]), _rows(port_raw[p])
+        assert len(a) > 20, (p, len(a))
+        assert _iou(a, b) >= 0.95, (p, len(a), len(b))
+
+
+def test_merged_keypoints_equal_jax_engine(engine_outputs):
+    """After merge_matches_to_keypoints: the same keypoint sets per image
+    and the same index matches (as coordinate pairs), IoU >= 0.95."""
+    from detectorfreesfm_tpu.ops.grid_merge import (
+        merge_matches_to_keypoints as jax_merge,
+    )
+    from detectorfreesfm_tpu_torch.ops.grid_merge import (
+        merge_matches_to_keypoints,
+    )
+
+    jk, _js, jm = jax_merge(engine_outputs["jax"])
+    pk, _ps, pm = merge_matches_to_keypoints(engine_outputs["dense"])
+    assert set(jk) == set(pk)
+    for name in jk:
+        a = {tuple(r) for r in jk[name].tolist()}
+        b = {tuple(r) for r in pk[name].tolist()}
+        assert _iou(a, b) >= 0.95, name
+    for (n0, n1), idx in jm.items():
+        a = {tuple(jk[n0][i].tolist() + jk[n1][j].tolist()) for i, j in idx}
+        b = {tuple(pk[n0][i].tolist() + pk[n1][j].tolist())
+             for i, j in pm[(n0, n1)]}
+        assert _iou(a, b) >= 0.95, (n0, n1)
+
+
+def test_fused_engine_matches_dense_engine(engine_outputs):
+    """fused_matching=True gives the dense path's matches, pair for pair."""
+    dense, fused = engine_outputs["dense"], engine_outputs["fused"]
+    assert set(fused) == set(engine_outputs["pairs"])
+    for p in engine_outputs["pairs"]:
+        assert len(_rows(dense[p])) > 20
+        assert _iou(_rows(dense[p]), _rows(fused[p])) >= 0.95, p
+
+
+_IMPORT_PROBE = r"""
+import sys, numpy as np, torch
+sys.path.insert(0, {repo!r})
+from detectorfreesfm_tpu_torch.match import engine
+from detectorfreesfm_tpu_torch.data.images import from_array
+from detectorfreesfm_tpu_torch.utils.checkpoint import load_matcher_params
+cfg = engine.EngineConfig(img_resize=64, fine_enabled=True,
+                          fused_matching=True)
+params = load_matcher_params({weights!r}, cfg.matcher_config())
+eng = engine.PairMatchingEngine(cfg, params, device="cpu")
+rng = np.random.default_rng(0)
+img = from_array(rng.uniform(size=(64, 64)).astype(np.float32))
+out = eng.match_pairs([("a", "b")], {{"a": img, "b": img}})
+assert len(out[("a", "b")]["conf"]) > 0
+banned = ("jax", "jaxlib", "flax", "msgpack", "h5py", "PIL",
+          "detectorfreesfm_tpu")
+bad = sorted(m for m in sys.modules if m.split(".")[0] in banned)
+print("FORBIDDEN", bad)
+sys.exit(1 if bad else 0)
+"""
+
+
+def test_port_imports_no_jax_or_missing_packages():
+    """In a fresh interpreter (conftest imports jax into this one), the
+    port's forward on the CPU pulls in none of jax, flax, msgpack, h5py,
+    PIL or the JAX package."""
+    code = _IMPORT_PROBE.format(repo=REPO, weights=WEIGHTS)
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_default_device_needs_cuda(monkeypatch):
+    """device=None means CUDA; without it the entry point raises instead
+    of falling back to the CPU."""
+    import torch
+
+    from detectorfreesfm_tpu_torch.device import resolve_device
+    from detectorfreesfm_tpu_torch.match.engine import (
+        EngineConfig,
+        PairMatchingEngine,
+    )
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        PairMatchingEngine(EngineConfig(img_resize=64))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        resolve_device()
+    assert resolve_device("cpu").type == "cpu"
+
+
+def test_scene_generator_equals_jax_copy():
+    """The port's numpy copy of generate_scene renders the JAX package's
+    scene bit for bit."""
+    from detectorfreesfm_tpu.data.synthetic import (
+        SyntheticConfig as JaxSC,
+        generate_scene as jax_generate_scene,
+    )
+
+    ours = _scene(96, 3, seed=4)
+    ref = jax_generate_scene(4, JaxSC(size=96, n_views=3))
+    for a, b in zip(ours, ref):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_epipolar_error_is_zero_on_true_correspondences():
+    """Points projected from the scene's own geometry have ~0 error, and a
+    shifted point has the error its offset implies."""
+    from detectorfreesfm_tpu_torch.data.synthetic import (
+        fundamental_matrix,
+        quat_to_rotmat,
+        symmetric_epipolar_error,
+    )
+
+    _img, _d, K, q, t = _scene(64, 2, seed=3)
+    X = np.random.default_rng(0).uniform(-1, 1, (50, 3)) + [0, 0, 6.0]
+    proj = []
+    for v in range(2):
+        xc = X @ quat_to_rotmat(q[v]).T + t[v]
+        xh = xc @ K[v].T
+        proj.append(xh[:, :2] / xh[:, 2:])
+    F = fundamental_matrix(K[0], q[0], t[0], K[1], q[1], t[1])
+    assert symmetric_epipolar_error(F, proj[0], proj[1]).max() < 1e-6
+    assert symmetric_epipolar_error(F, proj[0], proj[1] + 3.0).mean() > 0.5
+
+
+def record_jax_reference(size=832, n_views=4, seed=0):
+    """Print the dense fp32 JAX engine's numbers on the smoke's scene."""
+    import json
+    import time
+
+    import jax
+
+    jax.config.update("jax_platforms", "cpu")
+    from detectorfreesfm_tpu_torch.match.pairs import exhaustive_pairs
+
+    images, _d, K, q, t = _scene(size, n_views, seed)
+    names = [f"view_{i}" for i in range(n_views)]
+    pairs = exhaustive_pairs(names)
+    t0 = time.time()
+    raw = _jax_engine_matches(images, names, pairs, size)
+    counts, med = _epipolar_summary(raw, names, K, q, t)
+    print(json.dumps({
+        "engine": "jax dense fp32 cpu", "size": size, "n_views": n_views,
+        "seed": seed, "valid_per_pair": counts,
+        "total_valid": sum(counts.values()), "median_epipolar_px": med,
+        "seconds": time.time() - t0}), flush=True)
+
+
+if __name__ == "__main__":
+    import argparse
+
+    sys.path.insert(0, REPO)
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--size", type=int, default=832)
+    ap.add_argument("--views", type=int, default=4)
+    args = ap.parse_args()
+    record_jax_reference(args.size, args.views)
