@@ -7,9 +7,12 @@ Needs one CUDA card, nvcc and the repository checkout; imports only the
 standard library, numpy, torch and the port. Phases, one JSON line each:
 
   device   card name and power limit
-  build    nvcc of the port's CUDA sources into build/torch_kernels/
-  kernels  each kernel against its plain torch version at the main path's
-           shape (B=2, L=S=10816, C=256) and at a ragged one, and timed
+  build    nvcc of the port's CUDA sources into build/torch_kernels/, and
+           the count of tensor-core (HGMMA) instructions in the library
+  kernels  each kernel against its plain torch version at a ragged shape,
+           the main path's (B=2, L=S=10816, C=256) and the 1600 px one
+           (B=1, L=S=40000), timed at the last two; planted ties across
+           row and column tiles resolve to the first index
   weights  the bundled r5 matcher through the port's converter
   main     6 exhaustive pairs of a 832 px synthetic scene, coarse_fine,
            through PairMatchingEngine with the fused kernels, held to the
@@ -31,9 +34,10 @@ import torch
 REPO = os.path.dirname(os.path.abspath(__file__))
 WEIGHTS = os.path.join(REPO, "weights", "demo_matcher_r5_bf16.msgpack")
 
-# Published H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor
-# cores and HBM3 bandwidth. The kernels run fp32 FMAs on the CUDA cores.
-PEAK_FP32_FLOPS = 67e12
+# Published H100 SXM peaks (NVIDIA data sheet): dense bf16 on the tensor
+# cores and HBM3 bandwidth. The kernels run three bf16 products (hi/lo
+# halves) on the tensor cores.
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
 
 # The dense fp32 JAX engine on the CPU, same scene and settings, recorded
@@ -43,6 +47,10 @@ JAX_MEDIAN_EPIPOLAR_PX = 1.0242514909205727
 
 MAIN_SHAPE = dict(b=2, l=10816, s=10816, c=256)
 RAGGED_SHAPE = dict(b=2, l=1000, s=777, c=256)
+ETH3D_SHAPE = dict(b=1, l=40000, s=40000, c=256)  # 1600 px, one pair
+# Device kernels of csrc/dual_softmax.cu, as the profiler names them.
+DSM_KERNELS = ("pass1_kernel", "pass2_kernel", "combine1_kernel",
+               "combine2_kernel")
 N_PARAMS_R5 = 11265288
 
 
@@ -113,35 +121,46 @@ def features(b, l, s, c, seed):
             m0.to(dev), m1.to(dev))
 
 
+def bound(shape, pass2):
+    """(bound ms, bound_by) of one pass: three bf16 products on the tensor
+    cores against its bytes (each input read once, each output written
+    once): the four feature halves, the masks, pass 2's lse inputs, and
+    the outputs (two lse vectors; or a max and an arg per row and column)."""
+    b, l, s, c = shape["b"], shape["l"], shape["s"], shape["c"]
+    flops = 3 * 2.0 * b * l * s * c
+    vec = 4.0 * b * (l + s)
+    nbytes = 2 * 2.0 * b * (l + s) * c + vec + (3 * vec if pass2 else vec)
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops > t_bytes else "bytes")
+
+
 def check_kernels(shape, seed, timed):
     from detectorfreesfm_tpu_torch.ops import fused_dsm as K
 
     f0, f1, m0, m1 = features(seed=seed, **shape)
-    x0, x1, w0, w1 = (t.float().contiguous() for t in (f0, f1, m0, m1))
-    scale = 1.0 / (shape["c"] * 0.1)
+    ops = K.split_features(f0, f1, m0, m1, 0.1)
     out = {}
 
-    lse_r = K.dsm_row_lse(x0, x1, w0, w1, scale)
-    lse_c = K.dsm_row_lse(x1, x0, w1, w0, scale)
-    ref_r = K.row_lse_plain(x0, x1, w0, w1, scale)
-    ref_c = K.row_lse_plain(x1, x0, w1, w0, scale)
+    lse_r, lse_c = K.dsm_pass1(*ops)
+    ref_r, ref_c = K.dsm_pass1_plain(*ops)
     err_lse = max((lse_r - ref_r)[m0].abs().max().item(),
                   (lse_c - ref_c)[m1].abs().max().item())
-    check(err_lse <= 2e-3, "dsm_row_lse vs plain", err_lse)
+    check(err_lse <= 2e-3, "dsm_pass1 vs plain", err_lse)
 
-    rmax, rarg = K.dsm_row_argmax(x0, x1, w0, w1, ref_c, scale)
-    cmax, carg = K.dsm_row_argmax(x1, x0, w1, w0, ref_r, scale)
-    pr_max, pr_arg = K.row_argmax_plain(x0, x1, w0, w1, ref_c, scale)
-    pc_max, pc_arg = K.row_argmax_plain(x1, x0, w1, w0, ref_r, scale)
+    rmax, rarg, cmax, carg = K.dsm_pass2(*ops, ref_r, ref_c)
+    pr_max, pr_arg, pc_max, pc_arg = K.dsm_pass2_plain(*ops, ref_r, ref_c)
     agree_r = (rarg == pr_arg)[m0].float().mean().item()
     agree_c = (carg == pc_arg)[m1].float().mean().item()
     err_max = max((rmax - pr_max)[m0].abs().max().item(),
                   (cmax - pc_max)[m1].abs().max().item())
     check(min(agree_r, agree_c) >= 0.995, "argmax agreement", agree_r,
           agree_c)
+    del pr_max, pr_arg, pc_max, pc_arg
 
     plain_stats = K.dual_softmax_stats_plain(f0, f1, m0, m1, 0.1)
     plain = K.matches_from_stats(plain_stats, m0, 0.2, 2048)
+    del plain_stats
     ious = {}
     for fast in (False, True):
         fused = K.fused_extract_matches(f0, f1, m0, m1, 0.2, 2048, 0.1, fast)
@@ -156,30 +175,56 @@ def check_kernels(shape, seed, timed):
                col_arg_agree=agree_c, match_iou=ious[False],
                match_iou_fast_exp=ious[True])
     if timed:
-        b, l, s, c = shape["b"], shape["l"], shape["s"], shape["c"]
-        flops = 2.0 * b * l * s * c
-        in_bytes = 4.0 * (b * l * c + b * s * c + b * l + b * s)
-        out["dsm_row_lse"] = dict(
-            ms=cuda_ms(lambda: K.dsm_row_lse(x0, x1, w0, w1, scale), 10),
-            plain_ms=cuda_ms(lambda: K.row_lse_plain(x0, x1, w0, w1, scale),
-                             5),
-            bound_ms=max(flops / PEAK_FP32_FLOPS,
-                         (in_bytes + 4.0 * b * l) / PEAK_BYTES) * 1e3,
-            bound_by="operations" if flops / PEAK_FP32_FLOPS
-            > (in_bytes + 4.0 * b * l) / PEAK_BYTES else "bytes",
-            max_abs_err=err_lse)
-        arg_bytes = in_bytes + 4.0 * b * s + 8.0 * b * l
-        out["dsm_row_argmax"] = dict(
-            ms=cuda_ms(lambda: K.dsm_row_argmax(x0, x1, w0, w1, ref_c, scale),
-                       10),
-            plain_ms=cuda_ms(
-                lambda: K.row_argmax_plain(x0, x1, w0, w1, ref_c, scale), 5),
-            bound_ms=max(flops / PEAK_FP32_FLOPS, arg_bytes / PEAK_BYTES)
-            * 1e3,
-            bound_by="operations" if flops / PEAK_FP32_FLOPS
-            > arg_bytes / PEAK_BYTES else "bytes",
-            max_abs_err=err_max)
+        for name, fn, plain_fn, pass2, err in (
+                ("dsm_pass1", lambda: K.dsm_pass1(*ops),
+                 lambda: K.dsm_pass1_plain(*ops), False, err_lse),
+                ("dsm_pass2", lambda: K.dsm_pass2(*ops, ref_r, ref_c),
+                 lambda: K.dsm_pass2_plain(*ops, ref_r, ref_c), True,
+                 err_max)):
+            bound_ms, bound_by = bound(shape, pass2)
+            ms = cuda_ms(fn, 10)
+            out[name] = dict(ms=ms, plain_ms=cuda_ms(plain_fn, 3),
+                             bound_ms=bound_ms, bound_by=bound_by,
+                             share_of_bound=bound_ms / ms, max_abs_err=err)
     return out
+
+
+def check_ties():
+    """Identical f0 rows in row tiles 0, 2 and 14 tie for the maximum of
+    one column, and identical f1 rows in column tiles 0, 1 and 10 for the
+    maximum of one row: both passes' kernels, like the plain versions,
+    give the first index."""
+    from detectorfreesfm_tpu_torch.ops import fused_dsm as K
+
+    rng = np.random.default_rng(7)
+    n, c = 1000, 256
+    f0 = rng.normal(0, 1, (1, n, c))
+    f1 = rng.normal(0, 1, (1, n, c))
+    v, w = (x * 40.0 / np.linalg.norm(x) for x in rng.normal(0, 1, (2, c)))
+    tie_rows, col = [3, 130, 900], 11
+    row, tie_cols = 500, [5, 70, 700]
+    f0[0, tie_rows] = v
+    f1[0, col] = v
+    f0[0, row] = w
+    f1[0, tie_cols] = w
+    dev = torch.device("cuda")
+    f0, f1 = (torch.tensor(x, dtype=torch.float32, device=dev)
+              for x in (f0, f1))
+    ones = torch.ones(1, n, dtype=torch.bool, device=dev)
+    ops = K.split_features(f0, f1, ones, ones, 0.1)
+    zeros = torch.zeros(1, n, device=dev)
+    got = K.dsm_pass2(*ops, zeros, zeros)
+    want = K.dsm_pass2_plain(*ops, zeros, zeros)
+    check(got[3][0, col].item() == tie_rows[0]
+          and want[3][0, col].item() == tie_rows[0], "column tie",
+          got[3][0, col].item(), want[3][0, col].item())
+    check(got[1][0, row].item() == tie_cols[0]
+          and want[1][0, row].item() == tie_cols[0], "row tie",
+          got[1][0, row].item(), want[1][0, row].item())
+    check(bool((got[1] == want[1]).all()) and bool((got[3] == want[3]).all()),
+          "tie case: kernel and plain argmaxes differ")
+    return {"column_tie_arg": got[3][0, col].item(),
+            "row_tie_arg": got[1][0, row].item()}
 
 
 def profile_batch(engine, pairs, images):
@@ -201,8 +246,14 @@ def profile_batch(engine, pairs, images):
                if e.device_type == torch.autograd.DeviceType.CUDA]
     dev_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]
+    # The two passes' sweeps and their combines, whatever their rank.
+    dsm = [e for e in kernels if any(k in e.key for k in DSM_KERNELS)]
     # wall_ms includes the profiler's own start-up: no idle share from it.
     return dict(pairs=len(pairs), wall_ms=wall_ms, device_ms=dev_ms,
+                dual_softmax_ms=sum(e.self_device_time_total
+                                    for e in dsm) / 1e3,
+                dual_softmax=[(e.key[:60], e.count,
+                               e.self_device_time_total / 1e3) for e in dsm],
                 top=[(e.key[:90], e.count, e.self_device_time_total / 1e3)
                      for e in top])
 
@@ -249,8 +300,9 @@ def main_path(params):
     torch.cuda.synchronize()
     fused_s = time.time() - t0
     launches = dict(fused_dsm.launches)
-    check(all(n > 0 for n in launches.values()), "kernels not launched",
-          launches)
+    # One dsm_pass1 and one dsm_pass2 per batch of 2 pairs.
+    check(launches == {"dsm_pass1": 3, "dsm_pass2": 3},
+          "kernel launches on the main path", launches)
     check(set(raw) == set(pairs) and set(keypoints) == set(names),
           "pairs or images missing from the output")
 
@@ -315,17 +367,26 @@ def main():
     t0 = time.time()
     so = _build.build(fused_dsm.SOURCE)
     _build.load(fused_dsm.SOURCE)
+    build_s = time.time() - t0
+    hgmma = _build.sass_count(so, "HGMMA")
     log = so.with_suffix(".log").read_text() if so.with_suffix(
         ".log").exists() else ""
-    emit({"phase": "build", "seconds": time.time() - t0, "library": so.name,
+    emit({"phase": "build", "seconds": build_s, "library": so.name,
+          "hgmma_instructions": hgmma,
           "ptxas": [ln.strip() for ln in log.splitlines()
-                    if "registers" in ln or "spill" in ln]})
+                    if "registers" in ln or "spill" in ln
+                    or "Performance Loss" in ln]})
+    check(hgmma > 0, "no HGMMA instruction: the product is not on the "
+          "tensor cores")
 
     t0 = time.time()
     ragged = check_kernels(RAGGED_SHAPE, seed=1, timed=False)
     main_k = check_kernels(MAIN_SHAPE, seed=0, timed=True)
+    eth3d = check_kernels(ETH3D_SHAPE, seed=2, timed=True)
+    ties = check_ties()
     emit({"phase": "kernels", "seconds": time.time() - t0,
-          "ragged": ragged, "main_shape": main_k})
+          "ragged": ragged, "main_shape": main_k, "eth3d_1600px": eth3d,
+          "ties": ties})
 
     t0 = time.time()
     params = load_matcher_params(WEIGHTS)
@@ -340,12 +401,13 @@ def main():
     emit({"phase": "main", "seconds": time.time() - t0, **main_res})
 
     replaces = {
-        "dsm_row_lse": "jax package ops/pallas_dsm.py:98 (_pass1_kernel)",
-        "dsm_row_argmax": "jax package ops/pallas_dsm.py:160 (_pass2_kernel)",
+        "dsm_pass1": "detectorfreesfm_tpu/ops/pallas_dsm.py:98 (_pass1_kernel)",
+        "dsm_pass2": "detectorfreesfm_tpu/ops/pallas_dsm.py:160 "
+                     "(_pass2_kernel)",
     }
     src = "detectorfreesfm_tpu_torch/csrc/dual_softmax.cu"
     kernels = []
-    for kname in ("dsm_row_lse", "dsm_row_argmax"):
+    for kname in ("dsm_pass1", "dsm_pass2"):
         k = main_k[kname]
         kernels.append({
             "name": kname, "route": "cuda", "source": src,

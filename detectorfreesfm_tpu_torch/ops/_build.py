@@ -2,10 +2,10 @@
 
 Each source in csrc/ becomes one shared library with a plain C interface,
 compiled for sm_90a at first use into `build/torch_kernels/` at the repo
-root. The library's name carries a hash of the source and the flags, so a
-changed source builds anew; the build writes a temporary file and renames
-it into place, so concurrent processes never load a half-written library.
-Nothing here runs at import time.
+root. The library's name carries a hash of the source, the csrc/ headers
+and the flags, so a changed source or header builds anew; the build writes
+a temporary file and renames it into place, so concurrent processes never
+load a half-written library. Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -13,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -44,10 +45,27 @@ def find_nvcc() -> str:
 
 
 def library_path(source: str) -> Path:
-    """Where the library of csrc/<source> goes, named by content hash."""
+    """Where the library of csrc/<source> goes, named by a hash of the
+    source, every csrc/*.cuh header it may include, and the flags."""
     src = CSRC / source
-    h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{src.stem}_{h.hexdigest()[:16]}.so"
+
+
+def sass_count(library: Path, opcode: str) -> int:
+    """How many SASS instructions of `opcode` (e.g. HGMMA) the built
+    library holds, from cuobjdump beside nvcc."""
+    tool = Path(find_nvcc()).parent / "cuobjdump"
+    proc = subprocess.run([str(tool), "-sass", str(library)],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"cuobjdump failed on {library.name}:\n"
+                           f"{proc.stderr}")
+    word = re.compile(rf"\b{opcode}\b")
+    return sum(1 for line in proc.stdout.splitlines() if word.search(line))
 
 
 def build(source: str) -> Path:

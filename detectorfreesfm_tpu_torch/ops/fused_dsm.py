@@ -6,16 +6,21 @@ z = <f0_l, f1_s> / (C T) plus additive -1e9 masks,
   conf[l, s] = exp(2 z[l, s] - lse_r[l] - lse_c[s]),
 
 so mutual-NN + top-K extraction needs only O(L + S) statistics: the row and
-column logsumexps, and the row/column max and argmax of 2z - lse. Two
-hand-written CUDA kernels (csrc/dual_softmax.cu) compute them, each a row
-reduction over one orientation, launched on both orientations:
+column logsumexps, and the row/column max and argmax of 2z - lse. As in the
+JAX package, f0 is scaled by 1 / (C T) and both feature sets are split
+once per batch into bf16 halves (f = hi + lo), and z is the three-pass
+product hi0.hi1 + hi0.lo1 + lo0.hi1. Two hand-written CUDA kernels
+(csrc/dual_softmax.cu), named after the TPU kernels they replace, each
+form that product once and reduce it along both axes:
 
-  dsm_row_lse     (A, B)          -> logsumexp_s z_AB[r, s]
-  dsm_row_argmax  (A, B, bias_B)  -> max/argmax_s 2 z_AB[r, s] - bias_B[s]
+  dsm_pass1  (hi0, lo0, hi1, lo1, m0, m1)               -> lse_r, lse_c
+  dsm_pass2  (hi0, lo0, hi1, lo1, m0, m1, lse_r, lse_c)
+             -> row max/argmax of 2z - lse_c, column max/argmax of 2z - lse_r
 
 Each wrapper runs its plain torch version for CPU tensors, launches its
-kernel for CUDA tensors (or raises), and counts its launches in
-`launches`. There is no fallback from the kernel to the plain version.
+kernel (a sweep and the row and column combines) for CUDA tensors or
+raises, and counts its launches in `launches`. There is no fallback from
+the kernel to the plain version.
 """
 
 from __future__ import annotations
@@ -29,9 +34,10 @@ from .dual_softmax import CoarseMatches, topk_mutual_rows
 
 NEG = -1e9
 SOURCE = "dual_softmax.cu"
+KERNEL_C = 256  # the channel count the kernels are built for (`KC`)
 
 # Kernel launches since the last reset, by kernel name.
-launches = {"dsm_row_lse": 0, "dsm_row_argmax": 0}
+launches = {"dsm_pass1": 0, "dsm_pass2": 0}
 
 
 def fast_exp(x):
@@ -41,59 +47,87 @@ def fast_exp(x):
     return (x * 12102203.0 + 1064866805.0).to(torch.int32).view(torch.float32)
 
 
-def _logits(a, b, ma, mb, scale: float):
-    """(B, na, nb) masked logits, rounded as the kernel rounds them."""
-    z = torch.einsum("bnc,bmc->bnm", a, b) * scale
-    z = z + ((ma - 1.0) * -NEG)[:, :, None]
-    return z + ((mb - 1.0) * -NEG)[:, None, :]
+def split_hi_lo(f):
+    """fp32 -> (hi, lo) bf16 with f ~ hi + lo, as the JAX package splits
+    its features outside the Pallas kernels."""
+    hi = f.to(torch.bfloat16)
+    return hi, (f - hi.float()).to(torch.bfloat16)
 
 
-def row_lse_plain(a, b, ma, mb, scale: float, fast: bool = False):
-    """Plain version of dsm_row_lse: (B, na) logsumexp over b's rows."""
-    z = _logits(a, b, ma, mb, scale)
-    m = z.amax(dim=2, keepdim=True)
+def _logits(hi0, lo0, hi1, lo1, m0, m1):
+    """(B, L, S) masked logits from the halves, as `_sim_tile` forms them:
+    three fp32 products (each bf16 x bf16 term is exact), then the row and
+    the column bias."""
+    h0, l0, h1, l1 = (t.float() for t in (hi0, lo0, hi1, lo1))
+    z = torch.einsum("blc,bsc->bls", h0, h1)
+    z += torch.einsum("blc,bsc->bls", h0, l1)
+    z += torch.einsum("blc,bsc->bls", l0, h1)
+    z += ((m0 - 1.0) * -NEG)[:, :, None]
+    z += ((m1 - 1.0) * -NEG)[:, None, :]
+    return z
+
+
+def _lse(z, dim, fast):
+    m = z.amax(dim=dim, keepdim=True)
     e = fast_exp(z - m) if fast else torch.exp(z - m)
-    return m[..., 0] + torch.log(e.sum(dim=2).clamp(min=1e-30))
+    return m.squeeze(dim) + torch.log(e.sum(dim=dim).clamp(min=1e-30))
 
 
-def row_argmax_plain(a, b, ma, mb, bias, scale: float):
-    """Plain version of dsm_row_argmax: (B, na) max and int32 first-index
-    argmax of 2 z - bias; (NEG, 0) where nothing exceeds NEG, as the
-    kernel's starting value."""
-    t = 2.0 * _logits(a, b, ma, mb, scale) - bias[:, None, :]
-    m = t.amax(dim=2)
-    arg = t.argmax(dim=2).to(torch.int32)
+def _first_max(t, dim):
+    """Max and int32 first-index argmax along dim; (NEG, 0) where nothing
+    exceeds NEG, as the kernels' starting value."""
+    m = t.amax(dim=dim)
+    arg = t.argmax(dim=dim).to(torch.int32)
     above = m > NEG
     return (torch.where(above, m, torch.full_like(m, NEG)),
             torch.where(above, arg, torch.zeros_like(arg)))
 
 
-def _check(name, a, b, ma, mb, *extra):
-    if a.dim() != 3 or b.dim() != 3 or a.shape[0] != b.shape[0] \
-            or a.shape[2] != b.shape[2]:
-        raise ValueError(f"{name}: features must be (B, na, C) and "
-                         f"(B, nb, C), got {tuple(a.shape)}, {tuple(b.shape)}")
-    bsz, na, c = a.shape
-    nb = b.shape[1]
-    want = [(ma, (bsz, na)), (mb, (bsz, nb))] + [(e, (bsz, nb)) for e in extra]
+def dsm_pass1_plain(hi0, lo0, hi1, lo1, m0, m1, fast: bool = False):
+    """Plain version of dsm_pass1: (lse_r (B, L), lse_c (B, S))."""
+    z = _logits(hi0, lo0, hi1, lo1, m0, m1)
+    return _lse(z, 2, fast), _lse(z, 1, fast)
+
+
+def dsm_pass2_plain(hi0, lo0, hi1, lo1, m0, m1, lse_r, lse_c):
+    """Plain version of dsm_pass2: (row_max, row_arg) of 2z - lse_c over s
+    and (col_max, col_arg) of 2z - lse_r over l."""
+    z2 = 2.0 * _logits(hi0, lo0, hi1, lo1, m0, m1)
+    row_max, row_arg = _first_max(z2 - lse_c[:, None, :], 2)
+    z2 -= lse_r[:, :, None]
+    return (row_max, row_arg, *_first_max(z2, 1))
+
+
+def _check(name, hi0, lo0, hi1, lo1, m0, m1, *lse):
+    if hi0.dim() != 3 or hi1.dim() != 3 or hi0.shape[0] != hi1.shape[0] \
+            or hi0.shape[2] != hi1.shape[2]:
+        raise ValueError(f"{name}: features must be (B, L, C) and "
+                         f"(B, S, C), got {tuple(hi0.shape)}, "
+                         f"{tuple(hi1.shape)}")
+    bsz, na, c = hi0.shape
+    nb = hi1.shape[1]
+    want = [(lo0, (bsz, na, c)), (lo1, (bsz, nb, c)), (m0, (bsz, na)),
+            (m1, (bsz, nb))] + list(zip(lse, [(bsz, na), (bsz, nb)]))
     for t, shape in want:
         if tuple(t.shape) != shape:
             raise ValueError(f"{name}: expected shape {shape}, "
                              f"got {tuple(t.shape)}")
-    tensors = [a, b, ma, mb, *extra]
-    if any(t.device != a.device for t in tensors):
+    feats, vecs = [hi0, lo0, hi1, lo1], [m0, m1, *lse]
+    if any(t.device != hi0.device for t in feats + vecs):
         raise ValueError(f"{name}: all inputs must be on one device")
-    if any(t.dtype != torch.float32 for t in tensors):
-        raise ValueError(f"{name}: all inputs must be float32")
-    if a.device.type != "cuda":
+    if any(t.dtype != torch.bfloat16 for t in feats) \
+            or any(t.dtype != torch.float32 for t in vecs):
+        raise ValueError(f"{name}: features must be bfloat16 halves and "
+                         f"masks and lse float32")
+    if hi0.device.type != "cuda":
         return
-    if any(not t.is_contiguous() for t in tensors):
+    if any(not t.is_contiguous() for t in feats + vecs):
         raise ValueError(f"{name}: inputs must be contiguous")
-    if c % 4 or a.data_ptr() % 16 or b.data_ptr() % 16:
-        raise ValueError(f"{name}: the kernel needs C % 4 == 0 and 16-byte "
-                         f"aligned features (C={c})")
+    if c != KERNEL_C or any(t.data_ptr() % 16 for t in feats):
+        raise ValueError(f"{name}: the kernel needs C == {KERNEL_C} and "
+                         f"16-byte aligned features (C={c})")
     if max(na, nb) * c >= 2 ** 31 or bsz > 65535:
-        raise ValueError(f"{name}: shape {tuple(a.shape)} is out of range")
+        raise ValueError(f"{name}: shape {tuple(hi0.shape)} is out of range")
 
 
 def _launch(name, rc):
@@ -109,75 +143,104 @@ def _lib():
 
     lib = _build.load(SOURCE)
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.dsm_row_lse.argtypes = [p, p, p, p, p, i, i, i, i, ctypes.c_float,
-                                i, p]
-    lib.dsm_row_lse.restype = i
-    lib.dsm_row_argmax.argtypes = [p, p, p, p, p, p, p, i, i, i, i,
-                                   ctypes.c_float, p]
-    lib.dsm_row_argmax.restype = i
+    lib.dsm_row_tiles.argtypes = [i]
+    lib.dsm_row_tiles.restype = i
+    lib.dsm_splits.argtypes = [i, i, i]
+    lib.dsm_splits.restype = i
+    lib.dsm_pass1.argtypes = [p] * 10 + [i] * 6 + [p]
+    lib.dsm_pass1.restype = i
+    lib.dsm_pass2.argtypes = [p] * 14 + [i] * 5 + [p]
+    lib.dsm_pass2.restype = i
     return lib
 
 
-def dsm_row_lse(a, b, ma, mb, scale: float, fast: bool = False):
-    """(B, na) logsumexp over s of z[r, s]; masks are float 0/1."""
-    _check("dsm_row_lse", a, b, ma, mb)
-    if a.device.type == "cpu":
-        return row_lse_plain(a, b, ma, mb, scale, fast)
-    bsz, na, c = a.shape
-    out = torch.empty((bsz, na), dtype=torch.float32, device=a.device)
-    stream = torch.cuda.current_stream(a.device).cuda_stream
-    rc = _lib().dsm_row_lse(a.data_ptr(), b.data_ptr(), ma.data_ptr(),
-                            mb.data_ptr(), out.data_ptr(), bsz, na,
-                            b.shape[1], c, scale, int(fast), stream)
-    _launch("dsm_row_lse", rc)
-    return out
+def _partials(lib, hi0, hi1):
+    """(splits, row scratch, column scratch): one (value, value) partial
+    per (split of f1, row) and per (row tile, column)."""
+    bsz, na, _ = hi0.shape
+    nb = hi1.shape[1]
+    splits = lib.dsm_splits(bsz, na, nb)
+    rows = torch.empty((bsz, splits, na, 2), dtype=torch.float32,
+                       device=hi0.device)
+    cols = torch.empty((bsz, lib.dsm_row_tiles(na), nb, 2),
+                       dtype=torch.float32, device=hi0.device)
+    return splits, rows, cols
 
 
-def dsm_row_argmax(a, b, ma, mb, bias, scale: float):
-    """(B, na) max and int32 argmax over s of 2 z[r, s] - bias[s]."""
-    _check("dsm_row_argmax", a, b, ma, mb, bias)
-    if a.device.type == "cpu":
-        return row_argmax_plain(a, b, ma, mb, bias, scale)
-    bsz, na, c = a.shape
-    out_max = torch.empty((bsz, na), dtype=torch.float32, device=a.device)
-    out_arg = torch.empty((bsz, na), dtype=torch.int32, device=a.device)
-    stream = torch.cuda.current_stream(a.device).cuda_stream
-    rc = _lib().dsm_row_argmax(a.data_ptr(), b.data_ptr(), ma.data_ptr(),
-                               mb.data_ptr(), bias.data_ptr(),
-                               out_max.data_ptr(), out_arg.data_ptr(), bsz,
-                               na, b.shape[1], c, scale, stream)
-    _launch("dsm_row_argmax", rc)
-    return out_max, out_arg
+def _ptrs(*tensors):
+    return [t.data_ptr() for t in tensors]
 
 
-def _prepare(feat0, feat1, mask0, mask1):
-    return (feat0.float().contiguous(), feat1.float().contiguous(),
-            mask0.float().contiguous(), mask1.float().contiguous())
+def dsm_pass1(hi0, lo0, hi1, lo1, m0, m1, fast: bool = False):
+    """(lse_r (B, L), lse_c (B, S)): row and column logsumexp of z; masks
+    are float 0/1."""
+    _check("dsm_pass1", hi0, lo0, hi1, lo1, m0, m1)
+    if hi0.device.type == "cpu":
+        return dsm_pass1_plain(hi0, lo0, hi1, lo1, m0, m1, fast)
+    lib = _lib()
+    bsz, na, c = hi0.shape
+    nb = hi1.shape[1]
+    lse_r = torch.empty((bsz, na), dtype=torch.float32, device=hi0.device)
+    lse_c = torch.empty((bsz, nb), dtype=torch.float32, device=hi0.device)
+    splits, rows, cols = _partials(lib, hi0, hi1)
+    stream = torch.cuda.current_stream(hi0.device).cuda_stream
+    rc = lib.dsm_pass1(*_ptrs(hi0, lo0, hi1, lo1, m0, m1, lse_r, lse_c, rows,
+                              cols),
+                       bsz, na, nb, c, splits, int(fast), stream)
+    _launch("dsm_pass1", rc)
+    return lse_r, lse_c
+
+
+def dsm_pass2(hi0, lo0, hi1, lo1, m0, m1, lse_r, lse_c):
+    """(row_max, row_arg (B, L), col_max, col_arg (B, S)): max and int32
+    first-index argmax of 2z - lse_c over s and of 2z - lse_r over l."""
+    _check("dsm_pass2", hi0, lo0, hi1, lo1, m0, m1, lse_r, lse_c)
+    if hi0.device.type == "cpu":
+        return dsm_pass2_plain(hi0, lo0, hi1, lo1, m0, m1, lse_r, lse_c)
+    lib = _lib()
+    bsz, na, c = hi0.shape
+    nb = hi1.shape[1]
+    dev = hi0.device
+    row_max = torch.empty((bsz, na), dtype=torch.float32, device=dev)
+    row_arg = torch.empty((bsz, na), dtype=torch.int32, device=dev)
+    col_max = torch.empty((bsz, nb), dtype=torch.float32, device=dev)
+    col_arg = torch.empty((bsz, nb), dtype=torch.int32, device=dev)
+    splits, rows, cols = _partials(lib, hi0, hi1)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = lib.dsm_pass2(*_ptrs(hi0, lo0, hi1, lo1, m0, m1, lse_r, lse_c,
+                              row_max, row_arg, col_max, col_arg, rows,
+                              cols),
+                       bsz, na, nb, c, splits, stream)
+    _launch("dsm_pass2", rc)
+    return row_max, row_arg, col_max, col_arg
+
+
+def split_features(feat0, feat1, mask0, mask1, temperature: float = 0.1):
+    """(hi0, lo0, hi1, lo1, m0, m1): f0 scaled by 1 / (C T), both split
+    into bf16 halves, masks as float 0/1; all contiguous."""
+    f0, f1 = feat0.float(), feat1.float()
+    hi0, lo0 = split_hi_lo(f0 * (1.0 / (f0.shape[-1] * temperature)))
+    hi1, lo1 = split_hi_lo(f1)
+    return (hi0.contiguous(), lo0.contiguous(), hi1.contiguous(),
+            lo1.contiguous(), mask0.float().contiguous(),
+            mask1.float().contiguous())
 
 
 def dual_softmax_stats(feat0, feat1, mask0, mask1, temperature: float = 0.1,
                        fast_exp: bool = False):
     """(B, L, C), (B, S, C), bool masks -> (lse_r, lse_c, row_max_adj,
     row_arg, col_max_adj, col_arg), batched, through the kernels."""
-    f0, f1, m0, m1 = _prepare(feat0, feat1, mask0, mask1)
-    scale = 1.0 / (f0.shape[-1] * temperature)
-    lse_r = dsm_row_lse(f0, f1, m0, m1, scale, fast_exp)
-    lse_c = dsm_row_lse(f1, f0, m1, m0, scale, fast_exp)
-    row_max, row_arg = dsm_row_argmax(f0, f1, m0, m1, lse_c, scale)
-    col_max, col_arg = dsm_row_argmax(f1, f0, m1, m0, lse_r, scale)
-    return lse_r, lse_c, row_max, row_arg, col_max, col_arg
+    ops = split_features(feat0, feat1, mask0, mask1, temperature)
+    lse_r, lse_c = dsm_pass1(*ops, fast_exp)
+    return (lse_r, lse_c, *dsm_pass2(*ops, lse_r, lse_c))
 
 
 def dual_softmax_stats_plain(feat0, feat1, mask0, mask1,
                              temperature: float = 0.1, fast_exp: bool = False):
     """The same six outputs with dense torch ops on any device."""
-    f0, f1, m0, m1 = _prepare(feat0, feat1, mask0, mask1)
-    scale = 1.0 / (f0.shape[-1] * temperature)
-    lse_r = row_lse_plain(f0, f1, m0, m1, scale, fast_exp)
-    lse_c = row_lse_plain(f1, f0, m1, m0, scale, fast_exp)
-    row_max, row_arg = row_argmax_plain(f0, f1, m0, m1, lse_c, scale)
-    col_max, col_arg = row_argmax_plain(f1, f0, m1, m0, lse_r, scale)
-    return lse_r, lse_c, row_max, row_arg, col_max, col_arg
+    ops = split_features(feat0, feat1, mask0, mask1, temperature)
+    lse_r, lse_c = dsm_pass1_plain(*ops, fast_exp)
+    return (lse_r, lse_c, *dsm_pass2_plain(*ops, lse_r, lse_c))
 
 
 def matches_from_stats(stats, mask0, threshold: float, k: int):

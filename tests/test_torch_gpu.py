@@ -39,37 +39,67 @@ def _features(b, l, s, c, seed=0):
 @pytest.mark.cuda
 @pytest.mark.parametrize("fast_exp", [False, True])
 def test_kernels_match_plain_versions(fast_exp):
-    """Ragged shapes (not multiples of the 64-row tile): lse within 2e-3
-    (0.05 with fast exp, whose ±3% depends on each sum's shift), argmax
-    agreement >= 0.995, one launch counted per call."""
+    """Ragged shapes (not multiples of the 64-row tiles): lse within 2e-3
+    (0.05 with fast exp, whose ±3% depends on each sum's shift), row and
+    column argmax agreement >= 0.995, one launch counted per pass."""
     _needs_cuda()
     torch.backends.cuda.matmul.allow_tf32 = False
     f0, f1, m0, m1 = _features(2, 1000, 777, 256)
-    w0, w1 = m0.float(), m1.float()
-    scale = 1.0 / (256 * 0.1)
+    ops = fused_dsm.split_features(f0, f1, m0, m1)
     before = dict(fused_dsm.launches)
-    lse = fused_dsm.dsm_row_lse(f0, f1, w0, w1, scale, fast_exp)
-    ref = fused_dsm.row_lse_plain(f0, f1, w0, w1, scale, fast_exp)
-    assert (lse - ref)[m0].abs().max().item() <= (0.05 if fast_exp else 2e-3)
-    lse_c = fused_dsm.row_lse_plain(f1, f0, w1, w0, scale)  # bias over s
-    mx, arg = fused_dsm.dsm_row_argmax(f0, f1, w0, w1, lse_c, scale)
-    pmx, parg = fused_dsm.row_argmax_plain(f0, f1, w0, w1, lse_c, scale)
-    assert (arg == parg)[m0].float().mean().item() >= 0.995
-    assert fused_dsm.launches["dsm_row_lse"] == before["dsm_row_lse"] + 1
-    assert (fused_dsm.launches["dsm_row_argmax"]
-            == before["dsm_row_argmax"] + 1)
+    lse_r, lse_c = fused_dsm.dsm_pass1(*ops, fast_exp)
+    ref_r, ref_c = fused_dsm.dsm_pass1_plain(*ops, fast_exp)
+    tol = 0.05 if fast_exp else 2e-3
+    assert (lse_r - ref_r)[m0].abs().max().item() <= tol
+    assert (lse_c - ref_c)[m1].abs().max().item() <= tol
+    ref_r, ref_c = fused_dsm.dsm_pass1_plain(*ops)  # the exact biases
+    _, rarg, _, carg = fused_dsm.dsm_pass2(*ops, ref_r, ref_c)
+    _, prarg, _, pcarg = fused_dsm.dsm_pass2_plain(*ops, ref_r, ref_c)
+    assert (rarg == prarg)[m0].float().mean().item() >= 0.995
+    assert (carg == pcarg)[m1].float().mean().item() >= 0.995
+    assert fused_dsm.launches["dsm_pass1"] == before["dsm_pass1"] + 1
+    assert fused_dsm.launches["dsm_pass2"] == before["dsm_pass2"] + 1
+
+
+@pytest.mark.cuda
+def test_ties_across_tiles_take_the_first_index():
+    """Identical f0 rows in row tiles 0, 2 and 14 tie for one column's
+    maximum, identical f1 rows in column tiles 0, 1 and 10 for one row's:
+    the column combine and the row sweep both keep the first index."""
+    _needs_cuda()
+    rng = np.random.default_rng(3)
+    n, c = 1000, 256
+    f0 = rng.normal(0, 1, (1, n, c)).astype(np.float32)
+    f1 = rng.normal(0, 1, (1, n, c)).astype(np.float32)
+    v, w = (x * 40.0 / np.linalg.norm(x) for x in rng.normal(0, 1, (2, c)))
+    f0[0, [3, 130, 900]] = v
+    f1[0, 11] = v
+    f0[0, 500] = w
+    f1[0, [5, 70, 700]] = w
+    f0, f1 = torch.from_numpy(f0).cuda(), torch.from_numpy(f1).cuda()
+    ones = torch.ones(1, n, dtype=torch.bool, device="cuda")
+    ops = fused_dsm.split_features(f0, f1, ones, ones)
+    zeros = torch.zeros(1, n, device="cuda")
+    got = fused_dsm.dsm_pass2(*ops, zeros, zeros)
+    want = fused_dsm.dsm_pass2_plain(*ops, zeros, zeros)
+    assert got[3][0, 11].item() == want[3][0, 11].item() == 3
+    assert got[1][0, 500].item() == want[1][0, 500].item() == 5
+    assert torch.equal(got[1], want[1]) and torch.equal(got[3], want[3])
 
 
 @pytest.mark.cuda
 def test_wrappers_reject_what_the_kernel_cannot_take():
     _needs_cuda()
     f0, f1, m0, m1 = _features(1, 64, 64, 256)
+    ops = list(fused_dsm.split_features(f0, f1, m0, m1))
+    strided = ops[0].transpose(1, 2).contiguous().transpose(1, 2)
     with pytest.raises(ValueError, match="contiguous"):
-        fused_dsm.dsm_row_lse(f0.transpose(1, 2).contiguous().transpose(1, 2),
-                              f1, m0.float(), m1.float(), 1.0)
-    g0, g1 = f0[..., :254].contiguous(), f1[..., :254].contiguous()
-    with pytest.raises(ValueError, match="C % 4"):
-        fused_dsm.dsm_row_lse(g0, g1, m0.float(), m1.float(), 1.0)
+        fused_dsm.dsm_pass1(strided, *ops[1:])
+    narrow = [t[..., :128].contiguous() for t in ops[:4]]
+    with pytest.raises(ValueError, match="C == 256"):
+        fused_dsm.dsm_pass1(*narrow, *ops[4:])
+    with pytest.raises(ValueError, match="bfloat16"):
+        fused_dsm.dsm_pass2(ops[0].float(), *ops[1:], m0.float(), m1.float())
 
 
 @pytest.mark.cuda
