@@ -17,6 +17,15 @@ standard library, numpy, torch and the port. Phases, one JSON line each:
   main     6 exhaustive pairs of a 832 px synthetic scene, coarse_fine,
            through PairMatchingEngine with the fused kernels, held to the
            dense path and to the JAX engine's recorded numbers
+  geometry the slice beneath the mapper on the card, from main's fused
+           matches and on the 28 cached pairs of tests/data/torch/
+           demo_cached_832: match store (h5io), essential/homography
+           RANSAC, native track builder, DLT triangulation, PnP +
+           refine_pose, bundle adjustment at 4, 60 and 250 cameras, model
+           store (colmap_io, database, model_select); held to the JAX
+           package's numbers recorded with
+           `python tests/test_torch_sfm.py --record`, with card and CPU
+           times per step
 
 Any failed check raises (non-zero exit). The last two lines are the
 kernels summary and {"ok": true, "device": {...}}.
@@ -331,16 +340,1167 @@ def main_path(params):
           JAX_TOTAL_VALID)
     check(median <= JAX_MEDIAN_EPIPOLAR_PX + 0.5, "epipolar median", median,
           JAX_MEDIAN_EPIPOLAR_PX)
-    return dict(render_s=render_s, fused_match_s=fused_s,
-                dense_match_s=dense_s, pairs=len(pairs),
-                fused_pairs_per_s=len(pairs) / fused_s,
-                valid_per_pair=counts, total_valid=total,
-                jax_total_valid=JAX_TOTAL_VALID, median_epipolar_px=median,
-                jax_median_epipolar_px=JAX_MEDIAN_EPIPOLAR_PX,
-                iou_fused_vs_dense=ious,
-                n_keypoints={n: len(k) for n, k in keypoints.items()},
-                n_index_matches=sum(len(v) for v in match_indices.values()),
-                launches=launches, profile_one_batch=profile)
+    return keypoints, match_indices, dict(
+        render_s=render_s, fused_match_s=fused_s, dense_match_s=dense_s,
+        pairs=len(pairs), fused_pairs_per_s=len(pairs) / fused_s,
+        valid_per_pair=counts, total_valid=total,
+        jax_total_valid=JAX_TOTAL_VALID, median_epipolar_px=median,
+        jax_median_epipolar_px=JAX_MEDIAN_EPIPOLAR_PX,
+        iou_fused_vs_dense=ious,
+        n_keypoints={n: len(k) for n, k in keypoints.items()},
+        n_index_matches=sum(len(v) for v in match_indices.values()),
+        launches=launches, profile_one_batch=profile)
+
+
+# ---------------------------------------------------------------------------
+# The geometry phase: the slice beneath the mapper, fed by the main path's
+# fused matches. The numpy glue below follows the JAX package's mapper
+# (verify_pairs, _triangulate_tracks, _try_register); the estimators come
+# from a backend, so the JAX numbers below were recorded through the same
+# glue with the JAX package's functions
+# (`python tests/test_torch_sfm.py --record`, on the CPU).
+# ---------------------------------------------------------------------------
+
+VERIFY_THR_PX = 10.0      # MapperConfig.geometry_verify_thr
+ABS_POSE_THR_PX = 12.0    # MapperConfig.abs_pose_max_error
+FILTER_THR_PX = 10.0      # MapperConfig.filter_max_reproj_error
+MIN_TRI_ANGLE_DEG = 1.5   # MapperConfig.min_tri_angle_deg
+N_HYP = 512               # MapperConfig.ransac_hypotheses
+N_HYP_H = max(64, N_HYP // 2)
+N_HYP_PNP = max(256, N_HYP)
+PLANAR_H_RATIO = 0.8      # MapperConfig.planar_h_ratio
+FOCAL_FACTOR = 1.2        # MapperConfig.default_focal_factor
+MIN_PAIR_INLIERS = 8      # verify_pairs keeps pairs with >= 8 inliers
+EH_IOU_MIN = 0.98         # E/H inlier sets this alike make the switch moot
+DEMO_832 = os.path.join(REPO, "tests", "data", "torch", "demo_cached_832")
+# Original (W, H) of the demo images (tests/test_demo_golden.py).
+DEMO_SIZES = {
+    "00318781_8039756060.jpg": (1057, 780),
+    "01606161_5223112207.jpg": (1019, 679),
+    "02786360_4030483701.jpg": (337, 447),
+    "02928139_3448003521.jpg": (780, 1063),
+    "03599123_13889501361.jpg": (773, 1038),
+    "04398000_3306414527.jpg": (888, 1081),
+    "04408102_2916920065.jpg": (773, 1039),
+    "04477856_4856961901.jpg": (687, 1039),
+}
+
+# The JAX package's numbers on the same matches with the same keys.
+JAX_GEOMETRY = {
+    'two_view_a': {
+        'view_0|view_1':
+            {'n_e': 2048, 'n_h': 2048, 'switch': True, 'kept': True,
+             'eh_iou': 1.0},
+        'view_0|view_2':
+            {'n_e': 2029, 'n_h': 2029, 'switch': True, 'kept': True,
+             'eh_iou': 1.0},
+        'view_0|view_3':
+            {'n_e': 1976, 'n_h': 1976, 'switch': True, 'kept': True,
+             'eh_iou': 1.0},
+        'view_1|view_2':
+            {'n_e': 2048, 'n_h': 2048, 'switch': True, 'kept': True,
+             'eh_iou': 1.0},
+        'view_1|view_3':
+            {'n_e': 1973, 'n_h': 1972, 'switch': False, 'kept': True,
+             'eh_iou': 0.9994931576279777},
+        'view_2|view_3':
+            {'n_e': 2031, 'n_h': 2031, 'switch': True, 'kept': True,
+             'eh_iou': 1.0},
+    },
+    'two_view_b': {
+        '00318781_8039756060.jpg|01606161_5223112207.jpg':
+            {'n_e': 111, 'n_h': 40, 'switch': False, 'kept': True,
+             'eh_iou': 0.14393939393939395},
+        '00318781_8039756060.jpg|02786360_4030483701.jpg':
+            {'n_e': 216, 'n_h': 49, 'switch': False, 'kept': True,
+             'eh_iou': 0.0995850622406639},
+        '00318781_8039756060.jpg|02928139_3448003521.jpg':
+            {'n_e': 97, 'n_h': 24, 'switch': False, 'kept': True,
+             'eh_iou': 0.07079646017699115},
+        '00318781_8039756060.jpg|03599123_13889501361.jpg':
+            {'n_e': 129, 'n_h': 47, 'switch': False, 'kept': True,
+             'eh_iou': 0.0},
+        '00318781_8039756060.jpg|04398000_3306414527.jpg':
+            {'n_e': 201, 'n_h': 85, 'switch': False, 'kept': True,
+             'eh_iou': 0.047619047619047616},
+        '00318781_8039756060.jpg|04408102_2916920065.jpg':
+            {'n_e': 195, 'n_h': 23, 'switch': False, 'kept': True,
+             'eh_iou': 0.0845771144278607},
+        '00318781_8039756060.jpg|04477856_4856961901.jpg':
+            {'n_e': 177, 'n_h': 43, 'switch': False, 'kept': True,
+             'eh_iou': 0.023255813953488372},
+        '01606161_5223112207.jpg|02786360_4030483701.jpg':
+            {'n_e': 85, 'n_h': 17, 'switch': False, 'kept': True,
+             'eh_iou': 0.04081632653061224},
+        '01606161_5223112207.jpg|02928139_3448003521.jpg':
+            {'n_e': 68, 'n_h': 24, 'switch': False, 'kept': True,
+             'eh_iou': 0.21052631578947367},
+        '01606161_5223112207.jpg|03599123_13889501361.jpg':
+            {'n_e': 450, 'n_h': 310, 'switch': False, 'kept': True,
+             'eh_iou': 0.6703296703296703},
+        '01606161_5223112207.jpg|04398000_3306414527.jpg':
+            {'n_e': 67, 'n_h': 18, 'switch': False, 'kept': True,
+             'eh_iou': 0.0},
+        '01606161_5223112207.jpg|04408102_2916920065.jpg':
+            {'n_e': 106, 'n_h': 18, 'switch': False, 'kept': True,
+             'eh_iou': 0.13761467889908258},
+        '01606161_5223112207.jpg|04477856_4856961901.jpg':
+            {'n_e': 118, 'n_h': 18, 'switch': False, 'kept': True,
+             'eh_iou': 0.0},
+        '02786360_4030483701.jpg|02928139_3448003521.jpg':
+            {'n_e': 162, 'n_h': 28, 'switch': False, 'kept': True,
+             'eh_iou': 0.13095238095238096},
+        '02786360_4030483701.jpg|03599123_13889501361.jpg':
+            {'n_e': 103, 'n_h': 43, 'switch': False, 'kept': True,
+             'eh_iou': 0.10606060606060606},
+        '02786360_4030483701.jpg|04398000_3306414527.jpg':
+            {'n_e': 137, 'n_h': 51, 'switch': False, 'kept': True,
+             'eh_iou': 0.18238993710691823},
+        '02786360_4030483701.jpg|04408102_2916920065.jpg':
+            {'n_e': 235, 'n_h': 34, 'switch': False, 'kept': True,
+             'eh_iou': 0.1115702479338843},
+        '02786360_4030483701.jpg|04477856_4856961901.jpg':
+            {'n_e': 178, 'n_h': 64, 'switch': False, 'kept': True,
+             'eh_iou': 0.04310344827586207},
+        '02928139_3448003521.jpg|03599123_13889501361.jpg':
+            {'n_e': 127, 'n_h': 25, 'switch': False, 'kept': True,
+             'eh_iou': 0.10144927536231885},
+        '02928139_3448003521.jpg|04398000_3306414527.jpg':
+            {'n_e': 319, 'n_h': 115, 'switch': False, 'kept': True,
+             'eh_iou': 0.3312883435582822},
+        '02928139_3448003521.jpg|04408102_2916920065.jpg':
+            {'n_e': 173, 'n_h': 40, 'switch': False, 'kept': True,
+             'eh_iou': 0.16393442622950818},
+        '02928139_3448003521.jpg|04477856_4856961901.jpg':
+            {'n_e': 245, 'n_h': 93, 'switch': False, 'kept': True,
+             'eh_iou': 0.3684210526315789},
+        '03599123_13889501361.jpg|04398000_3306414527.jpg':
+            {'n_e': 360, 'n_h': 130, 'switch': False, 'kept': True,
+             'eh_iou': 0.32075471698113206},
+        '03599123_13889501361.jpg|04408102_2916920065.jpg':
+            {'n_e': 202, 'n_h': 32, 'switch': False, 'kept': True,
+             'eh_iou': 0.14146341463414633},
+        '03599123_13889501361.jpg|04477856_4856961901.jpg':
+            {'n_e': 142, 'n_h': 24, 'switch': False, 'kept': True,
+             'eh_iou': 0.11409395973154363},
+        '04398000_3306414527.jpg|04408102_2916920065.jpg':
+            {'n_e': 333, 'n_h': 138, 'switch': False, 'kept': True,
+             'eh_iou': 0.11084905660377359},
+        '04398000_3306414527.jpg|04477856_4856961901.jpg':
+            {'n_e': 195, 'n_h': 28, 'switch': False, 'kept': True,
+             'eh_iou': 0.08780487804878048},
+        '04408102_2916920065.jpg|04477856_4856961901.jpg':
+            {'n_e': 242, 'n_h': 51, 'switch': False, 'kept': True,
+             'eh_iou': 0.08118081180811808},
+    },
+    'pose_err_a': {
+        'view_0|view_1': (0.054368820751851496, 0.03118174151646111),
+        'view_0|view_2': (0.053695586172464026, 0.041386650582596864),
+        'view_0|view_3': (0.03532666705447991, 0.03389327801439496),
+        'view_1|view_2': (0.03128986750207549, 0.034181371158185106),
+        'view_1|view_3': (0.02309052856193762, 0.03268589611721492),
+        'view_2|view_3': (0.030595099543770144, 0.02069917603354768),
+    },
+    'e_pose_err_a': {
+        'view_0|view_1': (22.007957471821168, 94.08367331283561),
+        'view_0|view_2': (25.376415273134647, 51.88817934729132),
+        'view_0|view_3': (17.869383989715832, 54.04068889349809),
+        'view_1|view_2': (42.711043469982684, 47.23552404224288),
+        'view_1|view_3': (28.40324122963895, 51.494268696546996),
+        'view_2|view_3': (34.81003740741563, 76.87431683085053),
+    },
+    'n_tracks': 8668,
+    'n_points': 8667,
+    'median_reproj_px': 0.6525183133032073,
+    'pnp': {
+        'view_0': 0.029713453483138873,
+        'view_1': 0.06249249009364793,
+        'view_2': 0.277352408862378,
+        'view_3': 0.0534042730102047,
+    },
+    'ba4_cost_per_obs': 0.6738953214926913,
+    # (n_e, n_h) on the pair and on 8 one-ulp perturbations of x0
+    'count_trials': {
+        'view_0|view_1':
+            [(2048, 2048)],
+        'view_0|view_2':
+            [(2029, 2029)],
+        'view_0|view_3':
+            [(1976, 1976)],
+        'view_1|view_2':
+            [(2048, 2048)],
+        'view_1|view_3':
+            [(1973, 1972)],
+        'view_2|view_3':
+            [(2031, 2031)],
+        '00318781_8039756060.jpg|01606161_5223112207.jpg':
+            [(111, 40)],
+        '00318781_8039756060.jpg|02786360_4030483701.jpg':
+            [(216, 49)],
+        '00318781_8039756060.jpg|02928139_3448003521.jpg':
+            [(97, 24)],
+        '00318781_8039756060.jpg|03599123_13889501361.jpg':
+            [(129, 47)],
+        '00318781_8039756060.jpg|04398000_3306414527.jpg':
+            [(201, 85)],
+        '00318781_8039756060.jpg|04408102_2916920065.jpg':
+            [(195, 23)],
+        '00318781_8039756060.jpg|04477856_4856961901.jpg':
+            [(177, 43)],
+        '01606161_5223112207.jpg|02786360_4030483701.jpg':
+            [(85, 17)],
+        '01606161_5223112207.jpg|02928139_3448003521.jpg':
+            [(68, 24)],
+        '01606161_5223112207.jpg|03599123_13889501361.jpg':
+            [(450, 310)],
+        '01606161_5223112207.jpg|04398000_3306414527.jpg':
+            [(67, 18)],
+        '01606161_5223112207.jpg|04408102_2916920065.jpg':
+            [(106, 18)],
+        '01606161_5223112207.jpg|04477856_4856961901.jpg':
+            [(118, 18)],
+        '02786360_4030483701.jpg|02928139_3448003521.jpg':
+            [(162, 28)],
+        '02786360_4030483701.jpg|03599123_13889501361.jpg':
+            [(103, 43)],
+        '02786360_4030483701.jpg|04398000_3306414527.jpg':
+            [(137, 51)],
+        '02786360_4030483701.jpg|04408102_2916920065.jpg':
+            [(235, 34)],
+        '02786360_4030483701.jpg|04477856_4856961901.jpg':
+            [(178, 64)],
+        '02928139_3448003521.jpg|03599123_13889501361.jpg':
+            [(127, 25)],
+        '02928139_3448003521.jpg|04398000_3306414527.jpg':
+            [(319, 115)],
+        '02928139_3448003521.jpg|04408102_2916920065.jpg':
+            [(173, 40)],
+        '02928139_3448003521.jpg|04477856_4856961901.jpg':
+            [(245, 93)],
+        '03599123_13889501361.jpg|04398000_3306414527.jpg':
+            [(360, 130)],
+        '03599123_13889501361.jpg|04408102_2916920065.jpg':
+            [(202, 32)],
+        '03599123_13889501361.jpg|04477856_4856961901.jpg':
+            [(142, 24)],
+        '04398000_3306414527.jpg|04408102_2916920065.jpg':
+            [(327, 138), (333, 138)],
+        '04398000_3306414527.jpg|04477856_4856961901.jpg':
+            [(195, 28)],
+        '04408102_2916920065.jpg|04477856_4856961901.jpg':
+            [(242, 51)],
+    },
+}
+
+
+def _pow2(n, lo=64):
+    m = lo
+    while m < n:
+        m *= 2
+    return m
+
+
+def _rotmat(q):
+    from detectorfreesfm_tpu_torch.core.geometry import np_quat_to_rotmat
+
+    return np_quat_to_rotmat(np.asarray(q, np.float64))
+
+
+def _angle_deg(R):
+    return float(np.degrees(np.arccos(np.clip(
+        (np.trace(R) - 1.0) / 2.0, -1.0, 1.0))))
+
+
+def _so3_exp_np(w):
+    th = np.linalg.norm(w)
+    if th < 1e-12:
+        return np.eye(3)
+    k = w / th
+    Kx = np.array([[0, -k[2], k[1]], [k[2], 0, -k[0]], [-k[1], k[0], 0]])
+    return np.eye(3) + np.sin(th) * Kx + (1 - np.cos(th)) * Kx @ Kx
+
+
+def pair_jobs(keypoints, match_indices, Ks):
+    """verify_pairs' jobs at focal factor 1: (na, nb, m, x0, x1, f_mean)
+    with normalized float32 coordinates, sorted by pair."""
+    jobs = []
+    for na, nb in sorted(match_indices):
+        m = np.asarray(match_indices[(na, nb)]).astype(np.int64)
+        if len(m) < 8:
+            continue
+        Ka, Kb = Ks[na], Ks[nb]
+        uv0 = np.asarray(keypoints[na], np.float64)[m[:, 0]]
+        uv1 = np.asarray(keypoints[nb], np.float64)[m[:, 1]]
+        x0 = np.stack([(uv0[:, 0] - Ka[0, 2]) / Ka[0, 0],
+                       (uv0[:, 1] - Ka[1, 2]) / Ka[1, 1]], -1)
+        x1 = np.stack([(uv1[:, 0] - Kb[0, 2]) / Kb[0, 0],
+                       (uv1[:, 1] - Kb[1, 2]) / Kb[1, 1]], -1)
+        f_mean = float(np.mean([Ka[0, 0], Ka[1, 1], Kb[0, 0], Kb[1, 1]]))
+        jobs.append((na, nb, m, x0.astype(np.float32), x1.astype(np.float32),
+                     f_mean))
+    return jobs
+
+
+def verify_batch(jobs):
+    """One padded batch over all pairs (shared N), with verify_pairs'
+    thresholds and content-hash keys."""
+    from detectorfreesfm_tpu_torch.utils.prng import stable_rngs
+
+    n_pad = _pow2(max(len(j[2]) for j in jobs))
+    B = len(jobs)
+    x0 = np.zeros((B, n_pad, 2), np.float32)
+    x1 = np.zeros((B, n_pad, 2), np.float32)
+    mask = np.zeros((B, n_pad), bool)
+    thr = np.zeros(B, np.float32)
+    for r, (_na, _nb, m, a, b, f) in enumerate(jobs):
+        x0[r, :len(m)], x1[r, :len(m)], mask[r, :len(m)] = a, b, True
+        thr[r] = VERIFY_THR_PX / f
+    keys_e = stable_rngs([("verify", j[0], j[1], 0) for j in jobs])
+    keys_h = stable_rngs([("homog", j[0], j[1]) for j in jobs])
+    return x0, x1, mask, thr, keys_e, keys_h
+
+
+def two_view(backend, jobs, timer):
+    """Essential and homography RANSAC over all pairs; per pair the counts,
+    the kept inlier matches (the H-inliers where verify_pairs switches to
+    H), the E pose, and the pose the mapper seeds with (_twoview_pose:
+    decompose_homography where h_ratio > planar_h_ratio, else E's)."""
+    x0, x1, mask, thr, keys_e, keys_h = verify_batch(jobs)
+    e = timer(backend.relpose, x0, x1, mask, keys_e, thr, N_HYP)
+    h = timer(backend.homography, x0, x1, mask, keys_h, thr, N_HYP_H)
+    out = {}
+    for r, (na, nb, m, *_rest) in enumerate(jobs):
+        n_e, n_h = int(e["n"][r]), int(h["n"][r])
+        kept = n_e >= MIN_PAIR_INLIERS
+        h_ratio = n_h / max(n_e, 1)
+        switch = bool(kept and h_ratio > PLANAR_H_RATIO and n_h >= n_e)
+        inl_e, inl_h = e["inliers"][r, :len(m)], h["inliers"][r, :len(m)]
+        inl = inl_h if switch else inl_e
+        q_seed, t_seed = e["q"][r], e["t"][r]
+        if h_ratio > PLANAR_H_RATIO:
+            q_seed, t_seed = timer(backend.decompose, h["H"][r], x0[r],
+                                   x1[r], h["inliers"][r], mask[r])
+        out[f"{na}|{nb}"] = dict(
+            n_e=n_e, n_h=n_h, kept=kept, switch=switch,
+            eh_iou=float((inl_e & inl_h).sum() / max((inl_e | inl_h).sum(),
+                                                     1)),
+            matches=m[inl], q=e["q"][r], t=e["t"][r], q_seed=q_seed,
+            t_seed=t_seed)
+    return out, (x0, x1, mask, thr, keys_e, keys_h)
+
+
+def count_trials(backend, jobs, n=8, seed=0):
+    """Each pair's (n_e, n_h) on its own input and on `n` copies of it with
+    x0 perturbed by about one float32 ulp (relative N(0, 6e-8)), with the
+    same draws. A pair whose RANSAC has two attractors a rounding apart
+    shows both: the other backend's rounding may land on either."""
+    x0, x1, mask, thr, keys_e, keys_h = verify_batch(jobs)
+    rng = np.random.default_rng(seed)
+    trials = [x0] + [x0 * (1 + rng.normal(0, 6e-8, x0.shape)).astype(
+        np.float32) for _ in range(n)]
+    out = {f"{j[0]}|{j[1]}": set() for j in jobs}
+    for xp in trials:
+        e = backend.relpose(xp, x1, mask, keys_e, thr, N_HYP)
+        h = backend.homography(xp, x1, mask, keys_h, thr, N_HYP_H)
+        for r, j in enumerate(jobs):
+            out[f"{j[0]}|{j[1]}"].add((int(e["n"][r]), int(h["n"][r])))
+    return {k: sorted(v) for k, v in out.items()}
+
+
+def relative_pose_errors(res, names, q, t, which=""):
+    """Rotation and (signed) translation-direction errors in degrees of each
+    pair's pose (E's, or with which="_seed" the mapper's seed pose)
+    against the scene's true relative pose."""
+    errs = {}
+    R = _rotmat(q)
+    for key, r in res.items():
+        a, b = key.split("|")
+        i, j = names.index(a), names.index(b)
+        R_rel = R[j] @ R[i].T
+        t_rel = t[j] - R_rel @ t[i]
+        t_est = np.asarray(r["t" + which], np.float64)
+        cos = float(np.dot(t_est, t_rel)
+                    / max(np.linalg.norm(t_est) * np.linalg.norm(t_rel),
+                          1e-12))
+        errs[key] = (_angle_deg(_rotmat(r["q" + which]) @ R_rel.T),
+                     float(np.degrees(np.arccos(np.clip(cos, -1, 1)))))
+    return errs
+
+
+def scene_tracks(backend, names, keypoints, res, timer):
+    """Tracks over the kept inlier matches, by image id (1-based in sorted
+    name order, as the mapper numbers images)."""
+    ids = {n: i + 1 for i, n in enumerate(sorted(names))}
+    n_kpts = {ids[n]: len(keypoints[n]) for n in names}
+    matches = {}
+    for key, r in res.items():
+        if r["kept"]:
+            a, b = key.split("|")
+            matches[(ids[a], ids[b])] = r["matches"]
+    tracks = timer(backend.tracks, n_kpts, matches)
+    return ids, tracks
+
+
+def triangulate(backend, tracks, ids, keypoints, K, q, t, names, timer,
+                exclude=None):
+    """Every track of >= 2 usable views by DLT at the true poses, padded to
+    4 views, then _triangulate_tracks' acceptance: front, reprojection
+    error <= FILTER_THR_PX, >= 2 good views spanning >= MIN_TRI_ANGLE_DEG.
+    `exclude` (an image id) drops that view's observations first."""
+    by_id = {ids[n]: n for n in names}
+    R = _rotmat(q)
+    cand = []
+    for ti, tr in enumerate(tracks):
+        obs = [(i, k) for i, k in tr.observations if i != exclude]
+        if len(obs) >= 2:
+            cand.append((ti, obs))
+    n, V = len(cand), 4
+    n_pad = _pow2(n, lo=32)
+    P = np.zeros((n_pad, V, 3, 4), np.float32)
+    UV = np.zeros((n_pad, V, 2), np.float32)
+    M = np.zeros((n_pad, V), bool)
+    Rv = np.zeros((n, V, 3, 3))
+    tv = np.zeros((n, V, 3))
+    Cv = np.zeros((n, V, 3))
+    Kv = np.zeros((n, V, 3, 3))
+    for r, (_ti, obs) in enumerate(cand):
+        for v, (img, kpt) in enumerate(obs):
+            name = by_id[img]
+            c = names.index(name)
+            P[r, v, :, :3] = K[c] @ R[c]
+            P[r, v, :, 3] = K[c] @ t[c]
+            UV[r, v] = keypoints[name][kpt]
+            M[r, v] = True
+            Rv[r, v], tv[r, v], Kv[r, v] = R[c], t[c], K[c]
+            Cv[r, v] = -R[c].T @ t[c]
+    X, ok = timer(backend.triangulate, P, UV, M)
+    X = np.asarray(X, np.float64)[:n]
+    ok = np.asarray(ok)[:n] & np.all(np.isfinite(X), axis=1)
+    live = M[:n]
+    Xc = np.einsum("nvij,nj->nvi", Rv, X) + tv
+    z = Xc[..., 2]
+    zs = np.where(np.abs(z) < 1e-9, 1e-9, z)
+    uvp = np.einsum("nvij,nvj->nvi", Kv, Xc / zs[..., None])[..., :2]
+    err = np.linalg.norm(uvp - UV[:n], axis=-1)
+    good = live & (z > 1e-6) & (err <= FILTER_THR_PX) & ok[:, None]
+    rays = Cv - X[:, None, :]
+    rays /= np.maximum(np.linalg.norm(rays, axis=-1, keepdims=True), 1e-12)
+    ang = np.degrees(np.arccos(np.clip(
+        np.einsum("nvi,nwi->nvw", rays, rays), -1.0, 1.0)))
+    ang = np.where(good[:, :, None] & good[:, None, :], ang, 0.0)
+    keep = (good.sum(1) >= 2) & (ang.max(axis=(1, 2)) >= MIN_TRI_ANGLE_DEG)
+    pts = [dict(track=cand[r][0], xyz=X[r],
+                obs=[cand[r][1][v] for v in range(V) if good[r, v]],
+                err=err[r][good[r]]) for r in np.flatnonzero(keep)]
+    return pts
+
+
+def register(backend, tracks, ids, keypoints, K, q, t, names, timer):
+    """Each view against the points triangulated from the other three
+    (one batched PnP call), then refine_pose on its inliers. Returns the
+    per-view poses before and after refinement and the inlier counts."""
+    rows = []
+    for n in names:
+        img = ids[n]
+        pts = triangulate(backend, tracks, ids, keypoints, K, q, t, names,
+                          timer, exclude=img)
+        X, uv = [], []
+        for p in pts:
+            kpt = dict(tracks[p["track"]].observations).get(img)
+            if kpt is not None:
+                X.append(p["xyz"])
+                uv.append(keypoints[n][kpt])
+        rows.append((n, np.asarray(X), np.asarray(uv, np.float64)))
+    from detectorfreesfm_tpu_torch.utils.prng import stable_rngs
+
+    n_pad = _pow2(max(len(r[1]) for r in rows))
+    B = len(rows)
+    Xb = np.zeros((B, n_pad, 3), np.float32)
+    xb = np.zeros((B, n_pad, 2), np.float32)
+    mb = np.zeros((B, n_pad), bool)
+    thr = np.zeros(B, np.float32)
+    for r, (n, X, uv) in enumerate(rows):
+        c = names.index(n)
+        Kc = K[c]
+        Xb[r, :len(X)] = X
+        xb[r, :len(X)] = np.stack([(uv[:, 0] - Kc[0, 2]) / Kc[0, 0],
+                                   (uv[:, 1] - Kc[1, 2]) / Kc[1, 1]], -1)
+        mb[r, :len(X)] = True
+        thr[r] = ABS_POSE_THR_PX / ((Kc[0, 0] + Kc[1, 1]) / 2)
+    keys = stable_rngs([("register", n, len(X), 0) for n, X, _ in rows])
+    res = timer(backend.pnp, Xb, xb, mb, keys, thr, N_HYP_PNP)
+    out = {}
+    R = _rotmat(q)
+    for r, (n, X, _uv) in enumerate(rows):
+        c = names.index(n)
+        q_ref, t_ref = timer(backend.refine, res["q"][r], res["t"][r],
+                             Xb[r], xb[r], res["inliers"][r])
+        out[n] = dict(
+            n_points=len(X), n_inliers=int(res["n"][r]),
+            rot_err_deg=_angle_deg(_rotmat(res["q"][r]) @ R[c].T),
+            refined_rot_err_deg=_angle_deg(_rotmat(q_ref) @ R[c].T),
+            refined_t_err=float(np.linalg.norm(np.asarray(t_ref) - t[c])))
+    return out
+
+
+def ba_four_view(pts, ids, K, q, t, names, keypoints, seed=7):
+    """BA problem (i): the triangulated 4-view model, cameras 1..3 and the
+    points perturbed from a seed; cameras 0 and 1 fixed (similarity
+    gauge: camera 0's pose and one translation component of camera 1)."""
+    from detectorfreesfm_tpu_torch.core.geometry import np_rotmat_to_quat
+
+    rng = np.random.default_rng(seed)
+    R = _rotmat(q)
+    qv, tv = [], []
+    for c in range(len(names)):
+        Rc, tc = R[c], np.array(t[c], np.float64)
+        if c > 0:
+            Rc = _so3_exp_np(rng.normal(0, 0.01, 3)) @ Rc
+            tc = tc + rng.normal(0, 0.02, 3) * np.linalg.norm(tc)
+        qv.append(np_rotmat_to_quat(Rc))
+        tv.append(tc)
+    X = np.stack([p["xyz"] for p in pts])
+    scale = float(np.median(np.linalg.norm(X - X.mean(0), axis=1)))
+    X = X + rng.normal(0, 0.01 * scale, X.shape)
+    by_id = {ids[n]: n for n in names}
+    uv, cam, pt = [], [], []
+    for j, p in enumerate(pts):
+        for img, kpt in p["obs"]:
+            name = by_id[img]
+            uv.append(keypoints[name][kpt])
+            cam.append(names.index(name))
+            pt.append(j)
+    intr = np.stack([[Kc[0, 0], Kc[1, 1], Kc[0, 2], Kc[1, 2]] for Kc in K])
+    fixed = np.zeros(len(names), bool)
+    fixed[:2] = True
+    return ((np.stack(qv), np.stack(tv), intr, X, np.asarray(uv, np.float64),
+             np.asarray(cam), np.asarray(pt)),
+            dict(fixed_cams=fixed, gauge="similarity", max_iters=30))
+
+
+def _look_at(eye, target):
+    z = target - eye
+    z = z / np.linalg.norm(z)
+    x = np.cross(np.array([0.0, -1.0, 0.0]), z)
+    x /= np.linalg.norm(x)
+    return np.stack([x, np.cross(z, x), z])
+
+
+def ba_synthetic(n_cams, n_pts, seed):
+    """A synthetic BA problem made as tests/test_sfm.py makes its 500-camera
+    one: cameras on an arc around a box of points, exact observations, a
+    perturbed start; n_pts points, each seen in 4-10 random views of the
+    cameras that see it. Returns (args, kwargs, K)."""
+    from detectorfreesfm_tpu_torch.core.geometry import np_rotmat_to_quat
+
+    rng = np.random.default_rng(seed)
+    K = np.array([[600.0, 0, 320.0], [0, 600.0, 240.0], [0, 0, 1.0]])
+    # candidates enough that n_pts of them are seen by >= 4 cameras
+    pts = rng.uniform(-4, 4, (int(n_pts * 1.4), 3)) + np.array([0, 0, 10.0])
+    Rs, ts = [], []
+    for i in range(n_cams):
+        ang = (i / n_cams - 0.5) * 1.2
+        eye = np.array([8 * np.sin(ang), 0.3 * np.sin(i),
+                        10 - 8 * np.cos(ang)])
+        R = _look_at(eye, np.array([0, 0, 10.0]))
+        Rs.append(R)
+        ts.append(-R @ eye)
+    Rs, ts = np.stack(Rs), np.stack(ts)
+    Xc = np.einsum("cij,pj->pci", Rs, pts) + ts[None]       # (P, C, 3)
+    z = Xc[..., 2]
+    uv = Xc[..., :2] / np.where(z > 1e-6, z, 1.0)[..., None] * 600.0 \
+        + np.array([320.0, 240.0])
+    vis = (z > 0.5) & (uv[..., 0] > 0) & (uv[..., 0] < 640) \
+        & (uv[..., 1] > 0) & (uv[..., 1] < 480)
+    k = rng.integers(4, 11, len(pts))
+    score = np.where(vis, rng.random(vis.shape), -1.0)
+    rank = np.argsort(np.argsort(-score, axis=1), axis=1)
+    sel = vis & (rank < k[:, None])
+    keep = np.flatnonzero(sel.sum(1) >= 4)[:n_pts]
+    check(len(keep) == n_pts, "BA problem: too few visible points")
+    pts, sel, uv = pts[keep], sel[keep], uv[keep]
+    obs_pt, obs_cam = np.nonzero(sel)
+    obs_uv = uv[obs_pt, obs_cam]
+    order = np.argsort(obs_cam, kind="stable")
+    obs_pt, obs_cam, obs_uv = obs_pt[order], obs_cam[order], obs_uv[order]
+    qvec = np_rotmat_to_quat(Rs)
+    tvec = ts.copy()
+    tvec[2:] += rng.normal(0, 0.03, (n_cams - 2, 3))
+    pts_noisy = pts + rng.normal(0, 0.02, pts.shape)
+    intr = np.tile(np.array([K[0, 0], K[1, 1], K[0, 2], K[1, 2]]),
+                   (n_cams, 1))
+    fixed = np.zeros(n_cams, bool)
+    fixed[:2] = True
+    return ((qvec, tvec, intr, pts_noisy, obs_uv, obs_cam, obs_pt),
+            dict(fixed_cams=fixed), K)
+
+
+def mean_reproj_every_25th(q, t, pts, obs_uv, obs_cam, obs_pt, K):
+    """tests/test_sfm.py's check: the mean pixel error of every 25th
+    camera's observations under the adjusted poses and points."""
+    R = _rotmat(q)
+    errs = []
+    for i in range(0, len(q), 25):
+        sel = obs_cam == i
+        Xc = pts[obs_pt[sel]] @ R[i].T + t[i]
+        uv = (Xc / Xc[:, 2:]) @ K.T
+        errs.append(np.linalg.norm(uv[:, :2] - obs_uv[sel], axis=1))
+    return float(np.mean(np.concatenate(errs)))
+
+
+class PortGeometry:
+    """The port's estimators on one device, numpy in and out."""
+
+    def __init__(self, device):
+        self.device = device
+
+    def _g(self, keys, n_hyp, n):
+        from detectorfreesfm_tpu_torch.utils.prng import gumbel
+
+        return gumbel(keys, (n_hyp, n), device=self.device)
+
+    @staticmethod
+    def _np(x):
+        return x.cpu().numpy()
+
+    def relpose(self, x0, x1, mask, keys, thr, n_hyp):
+        from detectorfreesfm_tpu_torch.sfm.twoview import (
+            estimate_relative_pose_batch,
+        )
+
+        r = estimate_relative_pose_batch(
+            x0, x1, mask, self._g(keys, n_hyp, x0.shape[1]), thr,
+            device=self.device)
+        return dict(n=self._np(r.n_inliers), inliers=self._np(r.inliers),
+                    q=self._np(r.qvec).astype(np.float64),
+                    t=self._np(r.tvec).astype(np.float64))
+
+    def homography(self, x0, x1, mask, keys, thr, n_hyp):
+        from detectorfreesfm_tpu_torch.sfm.twoview import (
+            estimate_homography_batch,
+        )
+
+        r = estimate_homography_batch(
+            x0, x1, mask, self._g(keys, n_hyp, x0.shape[1]), thr,
+            device=self.device)
+        return dict(n=self._np(r.n_inliers), inliers=self._np(r.inliers),
+                    H=self._np(r.H))
+
+    def decompose(self, H, x0, x1, inliers, mask):
+        from detectorfreesfm_tpu_torch.core.geometry import rotmat_to_quat
+        from detectorfreesfm_tpu_torch.sfm.twoview import (
+            decompose_homography,
+        )
+
+        R, t, _n = decompose_homography(H, x0, x1, inliers, mask,
+                                        device=self.device)
+        return (self._np(rotmat_to_quat(R)).astype(np.float64),
+                self._np(t).astype(np.float64))
+
+    def triangulate(self, P, uv, mask):
+        from detectorfreesfm_tpu_torch.core.triangulation import (
+            triangulate_dlt,
+        )
+
+        X, ok = triangulate_dlt(P, uv, mask, device=self.device)
+        return self._np(X), self._np(ok)
+
+    def pnp(self, X, x, mask, keys, thr, n_hyp):
+        from detectorfreesfm_tpu_torch.sfm.pnp import (
+            estimate_absolute_pose_batch,
+        )
+
+        r = estimate_absolute_pose_batch(
+            X, x, mask, self._g(keys, n_hyp, X.shape[1]), thr,
+            device=self.device)
+        return dict(n=self._np(r.n_inliers), inliers=self._np(r.inliers),
+                    q=self._np(r.qvec).astype(np.float64),
+                    t=self._np(r.tvec).astype(np.float64))
+
+    def refine(self, q, t, X, x, mask):
+        from detectorfreesfm_tpu_torch.sfm.pnp import refine_pose
+
+        q2, t2 = refine_pose(q, t, X, x, mask, device=self.device)
+        return self._np(q2).astype(np.float64), self._np(t2).astype(
+            np.float64)
+
+    def ba(self, args, kw):
+        from detectorfreesfm_tpu_torch.sfm.ba import bundle_adjust
+
+        info = {}
+        out = bundle_adjust(*args, device=self.device, info=info, **kw)
+        return out, info
+
+    def tracks(self, n_kpts, matches, builder="native"):
+        from detectorfreesfm_tpu_torch.sfm.tracks import build_tracks
+
+        return build_tracks(n_kpts, matches, builder=builder)
+
+
+class Timer:
+    """Calls a function, syncs the card, and adds its wall time to
+    `seconds`; the rest of a step's wall time is its host share."""
+
+    def __init__(self):
+        self.seconds = 0.0
+
+    def __call__(self, fn, *args):
+        t0 = time.time()
+        out = fn(*args)
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        self.seconds += time.time() - t0
+        return out
+
+
+def synthetic_inputs(keypoints, match_indices):
+    """The main path's scene: names, true K, q, t, and the pair jobs."""
+    from detectorfreesfm_tpu_torch.data.synthetic import (
+        SyntheticConfig,
+        generate_scene,
+    )
+
+    _imgs, _d, K, q, t = generate_scene(0, SyntheticConfig(size=832,
+                                                           n_views=4))
+    names = [f"view_{i}" for i in range(4)]
+    jobs = pair_jobs(keypoints, match_indices,
+                     {n: K[i] for i, n in enumerate(names)})
+    return names, K, q, t, jobs
+
+
+def demo_inputs(kps, matches):
+    """demo_cached_832's pairs with the intrinsics IncrementalMapper._setup
+    guesses from the image sizes."""
+    Ks = {}
+    for n in kps:
+        w, h = DEMO_SIZES[n]
+        f = FOCAL_FACTOR * max(w, h)
+        Ks[n] = np.array([[f, 0, w / 2.0], [0, f, h / 2.0], [0, 0, 1.0]])
+    return pair_jobs(kps, matches, Ks)
+
+
+def geometry_reference(backend, keypoints, match_indices, demo_kps,
+                       demo_matches):
+    """The gated numbers of steps 2-5(i) through one backend; what the JAX
+    recorder and the card both compute."""
+    timer = Timer()
+    names, K, q, t, jobs = synthetic_inputs(keypoints, match_indices)
+    jobs_b = demo_inputs(demo_kps, demo_matches)
+    res_a, _ = two_view(backend, jobs, timer)
+    res_b, _ = two_view(backend, jobs_b, timer)
+    ids, tracks = scene_tracks(backend, names, keypoints, res_a, timer)
+    pts = triangulate(backend, tracks, ids, keypoints, K, q, t, names, timer)
+    reg = register(backend, tracks, ids, keypoints, K, q, t, names, timer)
+    args, kw = ba_four_view(pts, ids, K, q, t, names, keypoints)
+    (_q, _t, _i, _p, cost), info = backend.ba(args, kw)
+    return dict(
+        gated_numbers(res_a, res_b, names, q, t, tracks, pts, reg, cost),
+        ba4_iterations=info.get("iterations"),
+        count_trials={**count_trials(backend, jobs),
+                      **count_trials(backend, jobs_b)})
+
+
+def gated_numbers(res_a, res_b, names, q, t, tracks, pts, reg, ba4_cost):
+    """What _check_gates compares, from each step's results."""
+    def counts(res):
+        return {k: dict(n_e=v["n_e"], n_h=v["n_h"], switch=v["switch"],
+                        kept=v["kept"], eh_iou=v["eh_iou"])
+                for k, v in res.items()}
+
+    return dict(
+        two_view_a=counts(res_a),
+        pose_err_a=relative_pose_errors(res_a, names, q, t, "_seed"),
+        e_pose_err_a=relative_pose_errors(res_a, names, q, t),
+        two_view_b=counts(res_b),
+        n_tracks=len(tracks), n_points=len(pts),
+        median_reproj_px=float(np.median(np.concatenate(
+            [p["err"] for p in pts]))),
+        pnp={n: r["refined_rot_err_deg"] for n, r in reg.items()},
+        ba4_cost_per_obs=float(ba4_cost))
+
+
+def _check_gates(got, ref):
+    """Hold the card's geometry numbers to the JAX package's."""
+    for part in ("two_view_a", "two_view_b"):
+        check(got[part].keys() == ref[part].keys(), part, "pairs differ")
+        for k, g in got[part].items():
+            # The card's counts within 1% (rounded up to a whole inlier) of
+            # the counts JAX gives on this pair or on its one-ulp
+            # perturbations (count_trials), and the kept and switch
+            # decisions of that JAX outcome. Where its counts lie within
+            # those tolerances of the rule's boundary (n_e = 8; n_h = n_e;
+            # n_h = 0.8 n_e), counts that pass can fall on either side: a
+            # kept decision is then free, and a switch decision only where
+            # it does not change what is kept (the card's E and H inlier
+            # sets agree to IoU >= EH_IOU_MIN). The synthetic scene is
+            # planar, so JAX has n_h = n_e (or one apart) on all of (a).
+            ok = []
+            for n_e, n_h in ref["count_trials"][k]:
+                le, lh = int(np.ceil(0.01 * n_e)), int(np.ceil(0.01 * n_h))
+                if abs(g["n_e"] - n_e) > le or abs(g["n_h"] - n_h) > lh:
+                    continue
+                kept = n_e >= MIN_PAIR_INLIERS
+                switch = kept and n_h / max(n_e, 1) > PLANAR_H_RATIO \
+                    and n_h >= n_e
+                edge_kept = abs(n_e - MIN_PAIR_INLIERS) <= le
+                edge_switch = (abs(n_h - n_e) <= lh + le or abs(
+                    n_h - PLANAR_H_RATIO * n_e) <= lh + PLANAR_H_RATIO * le)
+                ok.append((g["kept"] == kept or edge_kept)
+                          and (g["switch"] == switch or (
+                              edge_switch and g["eh_iou"] >= EH_IOU_MIN)))
+            check(any(ok), part, k, "counts or decisions", g,
+                  ref["count_trials"][k])
+    for k, (rot, tr) in got["pose_err_a"].items():
+        r_rot, r_tr = ref["pose_err_a"][k]
+        check(rot <= r_rot + 0.05 and tr <= r_tr + 0.5, "pose error", k,
+              (rot, tr), (r_rot, r_tr))
+    check(abs(got["n_points"] - ref["n_points"]) <= 0.01 * ref["n_points"],
+          "triangulated points", got["n_points"], ref["n_points"])
+    check(got["median_reproj_px"] <= ref["median_reproj_px"] + 0.05,
+          "median reprojection", got["median_reproj_px"],
+          ref["median_reproj_px"])
+    for n, e in got["pnp"].items():
+        check(e <= ref["pnp"][n] + 0.05, "PnP rotation", n, e, ref["pnp"][n])
+    check(got["ba4_cost_per_obs"] <= 1.05 * ref["ba4_cost_per_obs"],
+          "BA (i) cost", got["ba4_cost_per_obs"], ref["ba4_cost_per_obs"])
+
+
+def _model_store(pts, ids, names, K, keypoints, match_indices, ba_out,
+                 workdir):
+    """Step 6: the BA'd 4-view model through Reconstruction, colmap_io
+    (bin, txt, PLY), the COLMAP database and model_select."""
+    from detectorfreesfm_tpu_torch.data import colmap_io
+    from detectorfreesfm_tpu_torch.data.database import (
+        COLMAPDatabase,
+        export_scene_to_database,
+        image_ids_to_pair_id,
+    )
+    from detectorfreesfm_tpu_torch.sfm import model_select
+    from detectorfreesfm_tpu_torch.sfm.reconstruction import (
+        Reconstruction,
+        RImage,
+    )
+
+    q_ba, t_ba, _intr, X_ba, _cost = ba_out
+    rec = Reconstruction()
+    for c, n in enumerate(names):
+        i = ids[n]
+        Kc = K[c]
+        rec.add_camera(colmap_io.Camera(
+            i, "PINHOLE", 832, 832,
+            np.array([Kc[0, 0], Kc[1, 1], Kc[0, 2], Kc[1, 2]])))
+        rec.add_image(RImage(id=i, name=n, camera_id=i,
+                             xys=np.asarray(keypoints[n], np.float64)))
+        rec.set_pose(i, q_ba[c], t_ba[c])
+    for j, p in enumerate(pts):
+        rec.add_point(X_ba[j], p["obs"])
+    errs = rec.reprojection_errors()
+    for pid, e in errs.items():
+        rec.points[pid]["error"] = float(np.mean(e))
+    mean_err = float(np.mean(np.concatenate(list(errs.values()))))
+
+    def same(a, b):
+        ca, ia, pa = a
+        cb, ib, pb = b
+        check(ca.keys() == cb.keys() and ia.keys() == ib.keys()
+              and pa.keys() == pb.keys(), "model keys differ")
+        for k in ca:
+            check(ca[k].model == cb[k].model
+                  and np.array_equal(ca[k].params, cb[k].params), "camera", k)
+        for k in ia:
+            x, y = ia[k], ib[k]
+            check(x.name == y.name and np.array_equal(x.qvec, y.qvec)
+                  and np.array_equal(x.tvec, y.tvec)
+                  and np.array_equal(x.xys, y.xys)
+                  and np.array_equal(x.point3D_ids, y.point3D_ids),
+                  "image", k)
+        for k in pa:
+            x, y = pa[k], pb[k]
+            check(np.array_equal(x.xyz, y.xyz) and np.array_equal(x.rgb, y.rgb)
+                  and x.error == y.error
+                  and np.array_equal(x.image_ids, y.image_ids)
+                  and np.array_equal(x.point2D_idxs, y.point2D_idxs),
+                  "point", k)
+
+    model = rec.to_colmap()
+    for ext in (".bin", ".txt"):
+        d = os.path.join(workdir, "model" + ext.replace(".", "_"))
+        rec.write(d, ext)
+        same(model, colmap_io.read_model(d, ext))
+        back = Reconstruction.from_colmap(*colmap_io.read_model(d, ext))
+        same(model, back.to_colmap())
+    ply = os.path.join(workdir, "points.ply")
+    colmap_io.write_ply(model[2], ply)
+    with open(ply, "rb") as f:
+        blob = f.read()
+    body = blob[blob.index(b"end_header\n") + len(b"end_header\n"):]
+    rec_ply = np.frombuffer(body, dtype=[("xyz", "<f4", 3), ("rgb", "u1", 3)])
+    check(len(rec_ply) == len(model[2]) and np.array_equal(
+        rec_ply["xyz"], np.stack([p.xyz for p in model[2].values()]).astype(
+            np.float32)), "PLY round trip")
+
+    db = os.path.join(workdir, "database.db")
+    if os.path.exists(db):
+        os.remove(db)
+    export_scene_to_database(
+        db, keypoints, match_indices, {n: (832, 832) for n in names},
+        intrinsics={n: K[c] for c, n in enumerate(names)})
+    with COLMAPDatabase(db) as conn:
+        imgs = conn.read_images()
+        kps = conn.read_keypoints()
+        mts = conn.read_matches()
+    by_name = {n: i for i, (n, _c) in imgs.items()}
+    check(set(by_name) == set(names), "database images")
+    for n in names:
+        k = kps[by_name[n]]
+        check(np.array_equal(k[:, :2], np.asarray(keypoints[n], np.float32)
+                             + np.float32(0.5)), "database keypoints", n)
+    for (a, b), m in match_indices.items():
+        ia, ib = by_name[a], by_name[b]
+        got = mts[(min(ia, ib), max(ia, ib))]
+        want = np.asarray(m, np.uint32)
+        check(np.array_equal(got, want if ia < ib else want[:, ::-1]),
+              "database matches", a, b, image_ids_to_pair_id(ia, ib))
+
+    smaller = Reconstruction.from_colmap(*rec.to_colmap())
+    smaller.deregister(ids[names[-1]])
+    best = model_select.best_model([None, smaller, rec])
+    check(best == 2, "best_model", best)
+    return dict(n_points=len(rec.points), n_observations=rec.n_observations(),
+                mean_reproj_px=mean_err, best_model=best,
+                stats=model_select.model_stats(rec))
+
+
+def _warm_up(backend, jobs):
+    """One small call of each estimator family; returns its wall time."""
+    t0 = time.time()
+    two_view(backend, jobs, Timer())
+    rng = np.random.default_rng(0)
+    X = (rng.normal(size=(1, 64, 3)) + [0, 0, 5]).astype(np.float32)
+    x = (X[..., :2] / X[..., 2:]).astype(np.float32)
+    from detectorfreesfm_tpu_torch.utils.prng import stable_rngs
+
+    r = backend.pnp(X, x, np.ones((1, 64), bool), stable_rngs([("w",)]),
+                    np.full(1, 1e-3, np.float32), 16)
+    backend.refine(r["q"][0], r["t"][0], X[0], x[0], r["inliers"][0])
+    args, kw, _K = ba_synthetic(8, 50, seed=0)
+    backend.ba(args, dict(kw, max_iters=1))
+    backend.ba(args, dict(kw, max_iters=1, schur_mode="pcg"))
+    return time.time() - t0
+
+
+def geometry_phase(keypoints, match_indices):
+    """The slice beneath the mapper on the card, from the main path's fused
+    matches: match store, two-view verification, tracks and
+    triangulation, registration, bundle adjustment, model store."""
+    from detectorfreesfm_tpu_torch.data import h5io
+    from detectorfreesfm_tpu_torch.sfm import tracks as tracks_mod
+
+    t_phase = time.time()
+    laps, last = {}, [t_phase]
+
+    def lap(name):  # wall time of each part of the phase, in order
+        now = time.time()
+        laps[name] = now - last[0]
+        last[0] = now
+
+    card, cpu = PortGeometry("cuda"), PortGeometry("cpu")
+    steps = {}
+    workdir = os.path.join(REPO, "build", "smoke_geometry")
+    os.makedirs(workdir, exist_ok=True)
+
+    def step(name, t0, timer, **extra):
+        wall = time.time() - t0
+        steps[name] = dict(card_s=wall, calls_s=timer.seconds,
+                           host_s=wall - timer.seconds,
+                           host_share=(wall - timer.seconds) / max(wall, 1e-9),
+                           **extra)
+
+    def cpu_time(fn, *args):
+        t0 = time.time()
+        fn(*args)
+        return time.time() - t0
+
+    # 1. Match store.
+    t0, timer = time.time(), Timer()
+    kp_path = os.path.join(workdir, "keypoints.h5")
+    mt_path = os.path.join(workdir, "matches.h5")
+    written = (h5io.save_h5(keypoints, kp_path),
+               h5io.save_h5({f"{a}|{b}": m for (a, b), m in
+                             match_indices.items()}, mt_path))
+    check(written == (h5io.stored_path(kp_path), h5io.stored_path(mt_path)),
+          "stored_path", written)
+    kp_back = h5io.load_h5(kp_path)
+    mt_back = h5io.load_h5(mt_path)
+    check(kp_back.keys() == keypoints.keys() and all(
+        kp_back[k].dtype == keypoints[k].dtype
+        and np.array_equal(kp_back[k], keypoints[k]) for k in keypoints),
+        "keypoints round trip")
+    check(all(np.array_equal(mt_back[f"{a}|{b}"], m) and
+              mt_back[f"{a}|{b}"].dtype == np.asarray(m).dtype
+              for (a, b), m in match_indices.items()), "matches round trip")
+    demo_kps = h5io.load_h5(os.path.join(DEMO_832, "keypoints.h5"), False)
+    demo_raw = h5io.load_h5(os.path.join(DEMO_832, "matches.h5"), False)
+    demo_matches = {tuple(k.split("|")): v.astype(np.int32)
+                    for k, v in demo_raw.items()}
+    check(len(demo_kps) == 8 and len(demo_matches) == 28, "demo cache")
+    step("match_store", t0, timer, files=[os.path.basename(w)
+                                          for w in written])
+
+    # 2. Two-view verification, (a) synthetic and (b) demo_cached_832.
+    lap("match_store")
+    names, K, q, t, jobs_a = synthetic_inputs(keypoints, match_indices)
+    jobs_b = demo_inputs(demo_kps, demo_matches)
+    lap("inputs")
+    # First calls (cuSOLVER/cuBLAS handles, lazy kernel loading, torch.func
+    # tracing), timed apart from the steps, on both devices.
+    steps["warmup"] = dict(card_s=_warm_up(card, jobs_b[:1]),
+                           cpu_s=_warm_up(cpu, jobs_b[:1]))
+    lap("warmup")
+    res = {}
+    for tag, jobs in (("a", jobs_a), ("b", jobs_b)):
+        t0, timer = time.time(), Timer()
+        res[tag], batch = two_view(card, jobs, timer)
+        x0, x1, mask, thr, keys_e, keys_h = batch
+        step(f"two_view_{tag}", t0, timer, pairs=len(jobs),
+             n_pad=int(x0.shape[1]))
+        steps[f"two_view_{tag}"]["cpu_calls_s"] = (
+            cpu_time(cpu.relpose, x0, x1, mask, keys_e, thr, N_HYP)
+            + cpu_time(cpu.homography, x0, x1, mask, keys_h, thr, N_HYP_H))
+    lap("two_view")
+    profile = _profile_two_view(card, jobs_b[:2])
+    lap("two_view_profile")
+
+    # 3. Tracks and triangulation.
+    t0, timer, tri_timer = time.time(), Timer(), Timer()
+    ids, tracks = scene_tracks(card, names, keypoints, res["a"], timer)
+    native = tracks_mod.last_builder == "native"
+    check(native, "native track builder", tracks_mod.last_builder)
+    py_tracks = card.tracks(
+        {ids[n]: len(keypoints[n]) for n in names},
+        {(ids[k.split("|")[0]], ids[k.split("|")[1]]): v["matches"]
+         for k, v in res["a"].items() if v["kept"]}, "python")
+    check([tr.observations for tr in tracks]
+          == [tr.observations for tr in py_tracks], "native vs python tracks")
+    pts = triangulate(card, tracks, ids, keypoints, K, q, t, names,
+                      tri_timer)
+    timer.seconds += tri_timer.seconds
+    step("tracks_triangulation", t0, timer, n_tracks=len(tracks),
+         n_points=len(pts), triangulate_calls_s=tri_timer.seconds)
+
+    lap("tracks_triangulation")
+    # 4. Registration.
+    t0, timer = time.time(), Timer()
+    reg = register(card, tracks, ids, keypoints, K, q, t, names, timer)
+    step("registration", t0, timer)
+    # The same port calls with device="cpu" (placement data).
+    cpu_timer = Timer()
+    register(cpu, tracks, ids, keypoints, K, q, t, names, cpu_timer)
+    steps["registration"]["cpu_calls_s"] = cpu_timer.seconds
+    cpu_timer = Timer()
+    triangulate(cpu, tracks, ids, keypoints, K, q, t, names, cpu_timer)
+    steps["tracks_triangulation"]["cpu_calls_s"] = cpu_timer.seconds
+
+    lap("registration")
+    # 5. Bundle adjustment.
+    args, kw = ba_four_view(pts, ids, K, q, t, names, keypoints)
+    ba = {}
+    t0 = time.time()
+    out_i, info_i = card.ba(args, kw)
+    card_i = time.time() - t0
+    out_i2, _ = card.ba(args, kw)
+    t0 = time.time()
+    cpu_i, _ = cpu.ba(args, kw)
+    ba["i"] = dict(cameras=4, points=len(args[3]), observations=len(args[4]),
+                   card_s=card_i, cpu_s=time.time() - t0,
+                   cost_per_obs=out_i[4], cpu_cost_per_obs=cpu_i[4],
+                   rerun_cost_diff=abs(out_i2[4] - out_i[4]),
+                   rerun_max_point_diff=float(np.abs(out_i2[3]
+                                                     - out_i[3]).max()),
+                   **info_i)
+    lap("ba_i")
+    args2, kw2, _K2 = ba_synthetic(60, 15000, seed=3)
+    lap("ba_ii_problem")
+    kw2 = dict(kw2, max_iters=15)
+    sol = {}
+    for mode in ("dense", "pcg"):
+        t0 = time.time()
+        sol[mode] = card.ba(args2, dict(kw2, schur_mode=mode))
+        ba[f"ii_{mode}"] = dict(cameras=60, points=len(args2[3]),
+                                observations=len(args2[4]),
+                                card_s=time.time() - t0,
+                                cost_per_obs=sol[mode][0][4], **sol[mode][1])
+    t0 = time.time()
+    cpu.ba(args2, dict(kw2, schur_mode="dense"))
+    ba["ii_dense"]["cpu_s"] = time.time() - t0
+    (qd, td, _i, _p, cd), (qp, tp, _i2, _p2, cp) = sol["dense"][0], \
+        sol["pcg"][0]
+    check(np.allclose(cd, cp, rtol=0.1, atol=1e-3)
+          and np.allclose(qd, qp, atol=2e-3) and np.allclose(td, tp,
+                                                             atol=2e-2),
+          "BA (ii) dense vs PCG", cd, cp, float(np.abs(qd - qp).max()),
+          float(np.abs(td - tp).max()))
+    lap("ba_ii")
+    args3, kw3, K3 = ba_synthetic(250, 60000, seed=4)
+    lap("ba_iii_problem")
+    t0 = time.time()
+    out3, info3 = card.ba(args3, dict(kw3, max_iters=15))
+    err3 = mean_reproj_every_25th(out3[0], out3[1], out3[3], args3[4],
+                                  args3[5], args3[6], K3)
+    ba["iii"] = dict(cameras=250, points=len(args3[3]),
+                     observations=len(args3[4]), card_s=time.time() - t0,
+                     cost_per_obs=out3[4], mean_reproj_px=err3, **info3)
+    check(info3["solver"] == "pcg" and err3 < 1.0, "BA (iii)", info3, err3)
+
+    lap("ba_iii")
+    # 6. Model store.
+    t0 = time.time()
+    store = _model_store(pts, ids, names, K, keypoints, match_indices, out_i,
+                         workdir)
+    steps["model_store"] = dict(card_s=time.time() - t0, **store)
+
+    got = gated_numbers(res["a"], res["b"], names, q, t, tracks, pts, reg,
+                        out_i[4])
+    lap("model_store")
+    report = dict(geometry_s=time.time() - t_phase, laps=laps,
+                  native_trackbuilder=native, steps=steps, ba=ba,
+                  registration=reg, got=got, jax=JAX_GEOMETRY,
+                  two_view_profile=profile)
+    # The full report, kept also when a gate below fails.
+    with open(os.path.join(workdir, "geometry.json"), "w") as f:
+        json.dump(report, f, indent=1, default=float)
+    _check_gates(got, JAX_GEOMETRY)
+    return report
+
+
+def _profile_two_view(backend, jobs):
+    """Device time by kernel of the two-view step's essential RANSAC, on
+    the pairs given (CUPTI's cost grows with the launches: two pairs'
+    1 024 QRs take about 10 s to trace, all 28 pairs' about 110 s)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    x0, x1, mask, thr, keys_e, _ = verify_batch(jobs)
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            backend.relpose(x0, x1, mask, keys_e, thr, N_HYP)
+            torch.cuda.synchronize()
+    except RuntimeError as e:  # no CUPTI tracing on this machine
+        return {"not_measured": repr(e)}
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]
+    ops = sorted((e for e in prof.key_averages()
+                  if e.key.startswith("aten::")),
+                 key=lambda e: -e.device_time_total)[:12]
+    return dict(
+        pairs=len(jobs),
+        device_ms=sum(e.self_device_time_total for e in kernels) / 1e3,
+        kernel_launches=sum(e.count for e in kernels),
+        top_kernels=[(e.key[:80], e.count, e.self_device_time_total / 1e3)
+                     for e in top],
+        top_ops=[(e.key, e.count, e.device_time_total / 1e3,
+                  e.cpu_time_total / 1e3) for e in ops])
 
 
 def main():
@@ -397,8 +1557,11 @@ def main():
           "n_params": n_params})
 
     t0 = time.time()
-    main_res = main_path(params)
+    keypoints, match_indices, main_res = main_path(params)
     emit({"phase": "main", "seconds": time.time() - t0, **main_res})
+
+    geo = geometry_phase(keypoints, match_indices)
+    emit({"phase": "geometry", **geo})
 
     replaces = {
         "dsm_pass1": "detectorfreesfm_tpu/ops/pallas_dsm.py:98 (_pass1_kernel)",

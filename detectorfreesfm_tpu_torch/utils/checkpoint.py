@@ -12,14 +12,20 @@ each flax leaf maps by name onto the port's module tree:
 
 Every tensor is cast to float32, as the JAX loader casts to its fp32
 template. Conversion is strict: an unused leaf or a parameter left unfilled
-raises.
+raises. The one exception is the JAX loader's: a coarse-only checkpoint
+(no `fine_match` subtree, as the r2 and self-supervised ones) fills every
+other parameter strictly, and the fine head keeps a seeded random init.
+The port's model always builds its fine head and leaves it unused when
+`fine_enabled` is off (flax creates no parameters for it then).
 """
 
 from __future__ import annotations
 
+import math
 from typing import Dict, Iterator, Tuple
 
 import torch
+from torch import nn
 
 from .msgpack_lite import msgpack_restore
 
@@ -87,12 +93,54 @@ def match_state_dict(state: Dict[str, torch.Tensor],
             f"{len(bad)} shape mismatches {bad[:4]}")
 
 
+FINE_PREFIX = "fine_match."
+
+
+def fresh_fine_head(cfg, seed: int = 0) -> Dict[str, torch.Tensor]:
+    """A random fine head (`fine_match.*`) drawn from an explicit
+    torch.Generator: torch's default Linear init (kaiming-uniform weights,
+    uniform biases) and LayerNorm init (ones, zeros)."""
+    from ..models.loftr import FinePreprocessAndMatch
+
+    gen = torch.Generator().manual_seed(seed)
+    with torch.device("meta"):
+        head = FinePreprocessAndMatch(cfg)
+    out = {}
+    for name, mod in head.named_modules():
+        if isinstance(mod, nn.Linear):
+            w = torch.empty(mod.weight.shape)
+            nn.init.kaiming_uniform_(w, a=math.sqrt(5), generator=gen)
+            out[f"{name}.weight"] = w
+            if mod.bias is not None:
+                bound = 1.0 / math.sqrt(mod.in_features)
+                out[f"{name}.bias"] = torch.empty(mod.bias.shape).uniform_(
+                    -bound, bound, generator=gen)
+        elif isinstance(mod, nn.LayerNorm):
+            out[f"{name}.weight"] = torch.ones(mod.weight.shape)
+            out[f"{name}.bias"] = torch.zeros(mod.bias.shape)
+    return {FINE_PREFIX + k: v for k, v in out.items()}
+
+
 def load_matcher_params(path: str, cfg=None) -> Dict[str, torch.Tensor]:
-    """The port's DetectorFreeMatcher state_dict from a flax checkpoint."""
+    """The port's DetectorFreeMatcher state_dict from a flax checkpoint.
+
+    A checkpoint without the fine head loads strictly into everything else;
+    the head comes from `fresh_fine_head(cfg)`, and when `cfg` enables the
+    fine stage the same warning as the JAX loader's is printed."""
     from ..models.loftr import DetectorFreeMatcher, MatcherConfig
 
+    cfg = cfg or MatcherConfig()
     state = flax_variables_to_state_dict(read_variables(path))
     with torch.device("meta"):
-        template = DetectorFreeMatcher(cfg or MatcherConfig()).state_dict()
-    match_state_dict(state, template)
+        template = DetectorFreeMatcher(cfg).state_dict()
+    if any(k.startswith(FINE_PREFIX) for k in state):
+        match_state_dict(state, template)
+        return state
+    match_state_dict(state, {k: v for k, v in template.items()
+                             if not k.startswith(FINE_PREFIX)})
+    if cfg.fine_enabled:
+        missing = ["/params/fine_match"]
+        print(f"warning: checkpoint {path} lacks {len(missing)} subtrees "
+              f"(kept at random init): {missing[:4]}")
+    state.update(fresh_fine_head(cfg))
     return state

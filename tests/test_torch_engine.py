@@ -183,6 +183,44 @@ rng = np.random.default_rng(0)
 img = from_array(rng.uniform(size=(64, 64)).astype(np.float32))
 out = eng.match_pairs([("a", "b")], {{"a": img, "b": img}})
 assert len(out[("a", "b")]["conf"]) > 0
+# The geometry slice, end to end at a tiny size.
+import os, tempfile
+from detectorfreesfm_tpu_torch.core import epipolar, geometry, precision
+from detectorfreesfm_tpu_torch.core.triangulation import triangulate_dlt
+from detectorfreesfm_tpu_torch.data import colmap_io, database, h5io
+from detectorfreesfm_tpu_torch.sfm import (ba, model_select, pnp,
+                                           reconstruction, tracks, twoview)
+from detectorfreesfm_tpu_torch.utils import prng
+x = rng.normal(size=(1, 64, 2)).astype(np.float32) * 0.1
+m = np.ones((1, 64), bool)
+keys = prng.stable_rngs([("verify", "a", "b", 0)])
+g = prng.gumbel(keys, (16, 64), device="cpu")
+twoview.estimate_relative_pose_batch(x, x + 0.01, m, g, [1e-3], device="cpu")
+twoview.estimate_homography_batch(x, x + 0.01, m, g, [1e-3], device="cpu")
+X = np.concatenate([x, np.full((1, 64, 1), 5.0, np.float32)], -1)
+pnp.estimate_absolute_pose_batch(X, x, m, g, [1e-3], device="cpu")
+P = np.tile(np.eye(3, 4, dtype=np.float32), (8, 2, 1, 1))
+P[:, 1, 0, 3] = 1.0
+triangulate_dlt(P, np.zeros((8, 2, 2), np.float32), device="cpu")
+q = np.array([[1.0, 0, 0, 0], [1.0, 0, 0, 0]])
+t = np.array([[0.0, 0, 0], [1.0, 0, 0]])
+pts = rng.normal(size=(20, 3)) + [0, 0, 5]
+uv = np.concatenate([pts[:, :2] / pts[:, 2:], (pts[:, :2] + [1, 0])
+                     / pts[:, 2:]]) * 500 + 320
+ba.bundle_adjust(q, t, np.tile([500.0, 500, 320, 320], (2, 1)), pts, uv,
+                 np.repeat([0, 1], 20), np.tile(np.arange(20), 2),
+                 max_iters=2, device="cpu")
+tracks.build_tracks({{1: 5, 2: 5}}, {{(1, 2): np.array([[0, 1], [2, 3]])}})
+with tempfile.TemporaryDirectory() as d:
+    h5io.load_h5(h5io.save_h5({{"k": x}}, os.path.join(d, "s.h5"), False)[:-4],
+                 False)
+    rec = reconstruction.Reconstruction()
+    rec.add_camera(colmap_io.Camera(1, "PINHOLE", 9, 9, np.ones(4)))
+    rec.write(os.path.join(d, "m"))
+    colmap_io.read_model(os.path.join(d, "m"))
+    model_select.best_model([rec])
+    database.export_scene_to_database(os.path.join(d, "x.db"), {{}}, {{}},
+                                      {{}})
 banned = ("jax", "jaxlib", "flax", "msgpack", "h5py", "PIL",
           "detectorfreesfm_tpu")
 bad = sorted(m for m in sys.modules if m.split(".")[0] in banned)
@@ -193,8 +231,9 @@ sys.exit(1 if bad else 0)
 
 def test_port_imports_no_jax_or_missing_packages():
     """In a fresh interpreter (conftest imports jax into this one), the
-    port's forward on the CPU pulls in none of jax, flax, msgpack, h5py,
-    PIL or the JAX package."""
+    port's forward on the CPU, and every geometry, store and estimator
+    module of the port run once at a tiny size, pull in none of jax, flax,
+    msgpack, h5py, PIL or the JAX package."""
     code = _IMPORT_PROBE.format(repo=REPO, weights=WEIGHTS)
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
                           text=True, timeout=300)

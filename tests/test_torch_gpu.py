@@ -137,3 +137,209 @@ def test_fused_engine_matches_dense_engine_on_gpu():
             for f in (False, True)]
         assert len(rows[0]) > 20
         assert len(rows[0] & rows[1]) / len(rows[0] | rows[1]) >= 0.95, p
+
+
+# --- the geometry slice: the port on the card against the port on the CPU --
+
+
+def _two_view_inputs(seed=0, B=4, N=512, planar=()):
+    rng = np.random.default_rng(seed)
+    x0 = np.zeros((B, N, 2), np.float32)
+    x1 = np.zeros_like(x0)
+    mask = np.zeros((B, N), bool)
+    for b in range(B):
+        n = N - 50 * b
+        X = rng.uniform(-1, 1, (n, 3)) + [0, 0, 5]
+        if b in planar:
+            X[:, 2] = 5.0
+        w = rng.normal(0, 0.1, 3)
+        th = np.linalg.norm(w)
+        k = w / th
+        Kx = np.array([[0, -k[2], k[1]], [k[2], 0, -k[0]], [-k[1], k[0], 0]])
+        R = np.eye(3) + np.sin(th) * Kx + (1 - np.cos(th)) * Kx @ Kx
+        Xc = X @ R.T + [1.0, 0.1, 0.05]
+        a = X[:, :2] / X[:, 2:] + rng.normal(0, 1e-3, (n, 2))
+        c = Xc[:, :2] / Xc[:, 2:] + rng.normal(0, 1e-3, (n, 2))
+        out = rng.uniform(size=n) < 0.3
+        c[out] = rng.uniform(-0.3, 0.3, (out.sum(), 2))
+        x0[b, :n], x1[b, :n], mask[b, :n] = a, c, True
+    return x0, x1, mask, np.full(B, 3e-3, np.float32)
+
+
+def _gumbel(B, H, N, tag):
+    from detectorfreesfm_tpu_torch.utils import prng
+
+    keys = prng.stable_rngs([(tag, b) for b in range(B)])
+    return keys, prng.gumbel(keys, (H, N), device="cpu")
+
+
+@pytest.mark.cuda
+def test_gumbel_draws_on_the_card_equal_the_cpu():
+    """The threefry bits and uniforms are integer work: bit for bit on the
+    card; Gumbel values within 2e-6 (log rounds per backend)."""
+    _needs_cuda()
+    from detectorfreesfm_tpu_torch.utils import prng
+
+    keys = prng.stable_rngs([("verify", "a", "b", 0), ("homog", "a", "b")])
+    for k in keys:
+        assert torch.equal(prng.random_bits(k, (64, 999), "cuda").cpu(),
+                           prng.random_bits(k, (64, 999), "cpu"))
+    g_gpu = prng.gumbel(keys, (64, 999), device="cuda").cpu()
+    g_cpu = prng.gumbel(keys, (64, 999), device="cpu")
+    assert (g_gpu - g_cpu).abs().max().item() <= 2e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["essential", "homography"])
+def test_two_view_batch_on_the_card_equals_the_cpu(kind):
+    """Same draws, same pairs: inlier counts within 1% (rounded up to a
+    whole inlier) and inlier-set IoU >= 0.98; essential poses within 0.05
+    deg of the CPU's."""
+    _needs_cuda()
+    from detectorfreesfm_tpu_torch.sfm import twoview
+
+    x0, x1, mask, thr = _two_view_inputs(
+        planar=(2, 3) if kind == "homography" else ())
+    _keys, g = _gumbel(len(x0), 256, x0.shape[1], kind)
+    fn = (twoview.estimate_relative_pose_batch if kind == "essential"
+          else twoview.estimate_homography_batch)
+    gpu = fn(x0, x1, mask, g, thr, device="cuda")
+    cpu = fn(x0, x1, mask, g, thr, device="cpu")
+    n_g, n_c = gpu.n_inliers.cpu().numpy(), cpu.n_inliers.numpy()
+    assert (np.abs(n_g - n_c) <= np.ceil(0.01 * n_c)).all(), (n_g, n_c)
+    for b in range(len(x0)):
+        a, c = gpu.inliers[b].cpu().numpy(), cpu.inliers[b].numpy()
+        assert (a & c).sum() / max((a | c).sum(), 1) >= 0.98
+    if kind == "essential":
+        dots = (gpu.qvec.cpu() * cpu.qvec).sum(-1).abs().clamp(max=1.0)
+        assert torch.rad2deg(2 * torch.arccos(dots)).max().item() <= 0.05
+
+
+@pytest.mark.cuda
+def test_pnp_and_triangulation_on_the_card_equal_the_cpu():
+    """PnP-RANSAC (P3P in complex64 on the card) and masked DLT: the same
+    inlier counts (within 1%), rotations within 0.05 deg, points within
+    1e-3 of the CPU's and 1e-2 of the truth (depth ~6, exact pixels)."""
+    _needs_cuda()
+    from detectorfreesfm_tpu_torch.core.triangulation import triangulate_dlt
+    from detectorfreesfm_tpu_torch.sfm import pnp
+
+    rng = np.random.default_rng(1)
+    B, N = 3, 300
+    X = (rng.uniform(-1, 1, (B, N, 3)) + [0, 0, 4]).astype(np.float32)
+    t = rng.normal(0, 0.3, (B, 1, 3))
+    Xc = X + t
+    x = (Xc[..., :2] / Xc[..., 2:] + rng.normal(0, 1e-3, (B, N, 2))).astype(
+        np.float32)
+    out = rng.uniform(size=(B, N)) < 0.4
+    x[out] = rng.uniform(-0.5, 0.5, (out.sum(), 2))
+    mask = np.ones((B, N), bool)
+    thr = np.full(B, 4e-3, np.float32)
+    _k, g = _gumbel(B, 256, N, "register")
+    gpu = pnp.estimate_absolute_pose_batch(X, x, mask, g, thr, device="cuda")
+    cpu = pnp.estimate_absolute_pose_batch(X, x, mask, g, thr, device="cpu")
+    n_g, n_c = gpu.n_inliers.cpu().numpy(), cpu.n_inliers.numpy()
+    assert (np.abs(n_g - n_c) <= np.ceil(0.01 * n_c)).all(), (n_g, n_c)
+    dots = (gpu.qvec.cpu() * cpu.qvec).sum(-1).abs().clamp(max=1.0)
+    assert torch.rad2deg(2 * torch.arccos(dots)).max().item() <= 0.05
+    q_g, t_g = pnp.refine_pose(gpu.qvec[0], gpu.tvec[0], X[0], x[0],
+                               gpu.inliers[0], device="cuda")
+    q_c, t_c = pnp.refine_pose(gpu.qvec[0].cpu(), gpu.tvec[0].cpu(), X[0],
+                               x[0], gpu.inliers[0].cpu(), device="cpu")
+    assert (q_g.cpu() - q_c).abs().max().item() <= 1e-5
+
+    P = np.tile(np.eye(3, 4, dtype=np.float32) * 700, (64, 4, 1, 1))
+    P[..., 2, 2] = 1.0
+    P[:, :, 0, 3] = np.arange(4) * 350.0  # baselines of 0.5 units
+    Xw = (rng.normal(size=(64, 3)) + [0, 0, 6]).astype(np.float32)
+    Xh = np.concatenate([Xw, np.ones((64, 1), np.float32)], 1)
+    proj = np.einsum("nvij,nj->nvi", P, Xh)
+    uv = (proj[..., :2] / proj[..., 2:]).astype(np.float32)
+    m = rng.uniform(size=(64, 4)) < 0.8
+    m[:, :2] = True
+    Xg, okg = triangulate_dlt(P, uv, m, device="cuda")
+    Xc_, okc = triangulate_dlt(P, uv, m, device="cpu")
+    assert torch.equal(okg.cpu(), okc)
+    # fp32 eigh of the 4x4 normal matrix, cuSOLVER against LAPACK
+    assert torch.allclose(Xg.cpu(), Xc_, rtol=1e-3, atol=1e-3)
+    assert np.abs(Xg.cpu().numpy() - Xw).max() < 1e-2
+
+
+def _ba_args(C=8, P=300, seed=2):
+    rng = np.random.default_rng(seed)
+    K = np.array([[600.0, 0, 320.0], [0, 600.0, 240.0], [0, 0, 1.0]])
+    pts = rng.uniform(-2, 2, (P, 3)) + [0, 0, 8.0]
+    q = np.zeros((C, 4))
+    q[:, 0] = 1.0
+    t = np.zeros((C, 3))
+    t[:, 0] = -np.linspace(-1.5, 1.5, C)
+    uv = []
+    for c in range(C):
+        Xc = pts + t[c]
+        uv.append((Xc / Xc[:, 2:]) @ K.T)
+    obs_uv = np.concatenate(uv)[:, :2] + rng.normal(0, 0.5, (C * P, 2))
+    obs_cam = np.repeat(np.arange(C), P)
+    obs_pt = np.tile(np.arange(P), C)
+    t_noisy = t.copy()
+    t_noisy[2:] += rng.normal(0, 0.02, (C - 2, 3))
+    intr = np.tile([K[0, 0], K[1, 1], K[0, 2], K[1, 2]], (C, 1))
+    fixed = np.zeros(C, bool)
+    fixed[:2] = True
+    return ((q, t_noisy, intr, pts + rng.normal(0, 0.02, pts.shape), obs_uv,
+             obs_cam, obs_pt), fixed)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("solver", ["dense", "pcg"])
+def test_bundle_adjust_on_the_card_equals_the_cpu(solver):
+    """Each Schur solver on the card against the CPU: final cost per
+    observation within 1% and poses within 1e-3 (the card's atomics
+    reorder the reductions); the PCG freezes at JAX's stopping rule."""
+    _needs_cuda()
+    from detectorfreesfm_tpu_torch.sfm.ba import bundle_adjust
+
+    args, fixed = _ba_args()
+    kw = dict(fixed_cams=fixed, max_iters=10, schur_mode=solver,
+              refine_focal=True)
+    info_g, info_c = {}, {}
+    g = bundle_adjust(*args, device="cuda", info=info_g, **kw)
+    c = bundle_adjust(*args, device="cpu", info=info_c, **kw)
+    assert abs(g[4] - c[4]) <= 0.01 * c[4], (g[4], c[4])
+    assert np.abs(g[1] - c[1]).max() <= 1e-3
+    assert info_g["solver"] == info_c["solver"] == solver
+
+
+@pytest.mark.cuda
+def test_cholesky_failure_on_the_card_is_a_nan_step():
+    """cholesky_ex on the card: a system that is not positive definite
+    gives a NaN step (JAX's cho_solve result), not an exception."""
+    _needs_cuda()
+    from detectorfreesfm_tpu_torch.sfm import ba
+
+    args, fixed = _ba_args(C=3, P=40)
+    qvec, tvec, intr, pts, obs_uv, obs_cam, obs_pt = args
+    from detectorfreesfm_tpu_torch.core.geometry import np_quat_to_rotmat
+
+    C, P, O = len(qvec), len(pts), len(obs_uv)
+    dev = "cuda"
+
+    def dv(a, dt=torch.float32):
+        return torch.as_tensor(np.asarray(a), dtype=dt, device=dev)
+
+    pad = lambda a, v: np.concatenate(  # noqa: E731
+        [a, np.full((1,) + a.shape[1:], v, a.dtype)])
+    track_obs = (np.arange(C)[None, :] * P + np.arange(P)[:, None])
+    prob = ba.BAProblem(
+        cam_R=dv(np_quat_to_rotmat(qvec)), cam_t=dv(tvec),
+        intr=dv(np.concatenate([intr, np.zeros((C, 1))], 1)), points=dv(pts),
+        obs_uv=dv(pad(obs_uv, 0.0)),
+        obs_cam=dv(pad(obs_cam, 0), torch.int64),
+        obs_pt=dv(pad(obs_pt, 0), torch.int64),
+        obs_mask=dv(pad(np.ones(O, bool), False), torch.bool),
+        track_obs=dv(track_obs, torch.int64),
+        track_mask=dv(np.ones((P, C), bool), torch.bool),
+        fixed_cams=dv(fixed, torch.bool),
+        pose_free=dv(np.where(fixed[:, None], 0.0, 1.0) * np.ones((C, 6))),
+        refine_focal=True, refine_dist=True)
+    step = ba.lm_step(prob, torch.tensor(-1.5, device=dev))
+    assert not torch.isfinite(step[1]).all()
