@@ -24,8 +24,16 @@ standard library, numpy, torch and the port. Phases, one JSON line each:
            refine_pose, bundle adjustment at 4, 60 and 250 cameras, model
            store (colmap_io, database, model_select); held to the JAX
            package's numbers recorded with
-           `python tests/test_torch_sfm.py --record`, with card and CPU
-           times per step
+           `python tests/test_torch_sfm.py --record`, with card times per
+           step
+  sfm      the incremental mapper on the card, on main's matches with and
+           without the true intrinsics and on the cached demo_cached_832
+           and demo_cached matches, then two refinement iterations
+           (S2DNet + MultiviewRefiner, r4 weights) of the known-intrinsics
+           model on main's images; held to the JAX package's numbers
+           recorded with `python tests/test_torch_mapper.py --record`, with
+           the mapper's seconds per step and the refiner's device ms per
+           chunk; full report in build/smoke_sfm/sfm.json
 
 Any failed check raises (non-zero exit). The last two lines are the
 kernels summary and {"ok": true, "device": {...}}.
@@ -354,11 +362,13 @@ def main_path(params):
 
 # ---------------------------------------------------------------------------
 # The geometry phase: the slice beneath the mapper, fed by the main path's
-# fused matches. The numpy glue below follows the JAX package's mapper
-# (verify_pairs, _triangulate_tracks, _try_register); the estimators come
-# from a backend, so the JAX numbers below were recorded through the same
-# glue with the JAX package's functions
-# (`python tests/test_torch_sfm.py --record`, on the CPU).
+# fused matches. The pair jobs come from the port mapper; the numpy glue
+# below batches each estimator class once over all pairs or views, as the
+# mapper's verify_pairs, _triangulate_tracks and _try_register call them
+# one bucket or image at a time. The estimators come from a backend, so
+# the JAX numbers below were recorded through the same glue with the JAX
+# package's functions (`python tests/test_torch_sfm.py --record`, on the
+# CPU).
 # ---------------------------------------------------------------------------
 
 VERIFY_THR_PX = 10.0      # MapperConfig.geometry_verify_thr
@@ -369,7 +379,6 @@ N_HYP = 512               # MapperConfig.ransac_hypotheses
 N_HYP_H = max(64, N_HYP // 2)
 N_HYP_PNP = max(256, N_HYP)
 PLANAR_H_RATIO = 0.8      # MapperConfig.planar_h_ratio
-FOCAL_FACTOR = 1.2        # MapperConfig.default_focal_factor
 MIN_PAIR_INLIERS = 8      # verify_pairs keeps pairs with >= 8 inliers
 EH_IOU_MIN = 0.98         # E/H inlier sets this alike make the switch moot
 DEMO_832 = os.path.join(REPO, "tests", "data", "torch", "demo_cached_832")
@@ -620,25 +629,18 @@ def _so3_exp_np(w):
     return np.eye(3) + np.sin(th) * Kx + (1 - np.cos(th)) * Kx @ Kx
 
 
-def pair_jobs(keypoints, match_indices, Ks):
-    """verify_pairs' jobs at focal factor 1: (na, nb, m, x0, x1, f_mean)
-    with normalized float32 coordinates, sorted by pair."""
-    jobs = []
-    for na, nb in sorted(match_indices):
-        m = np.asarray(match_indices[(na, nb)]).astype(np.int64)
-        if len(m) < 8:
-            continue
-        Ka, Kb = Ks[na], Ks[nb]
-        uv0 = np.asarray(keypoints[na], np.float64)[m[:, 0]]
-        uv1 = np.asarray(keypoints[nb], np.float64)[m[:, 1]]
-        x0 = np.stack([(uv0[:, 0] - Ka[0, 2]) / Ka[0, 0],
-                       (uv0[:, 1] - Ka[1, 2]) / Ka[1, 1]], -1)
-        x1 = np.stack([(uv1[:, 0] - Kb[0, 2]) / Kb[0, 0],
-                       (uv1[:, 1] - Kb[1, 2]) / Kb[1, 1]], -1)
-        f_mean = float(np.mean([Ka[0, 0], Ka[1, 1], Kb[0, 0], Kb[1, 1]]))
-        jobs.append((na, nb, m, x0.astype(np.float32), x1.astype(np.float32),
-                     f_mean))
-    return jobs
+def pair_jobs(keypoints, match_indices, sizes, intrinsics=None):
+    """The port mapper's verification jobs at focal factor 1, as
+    (na, nb, m, x0, x1, f_mean) with normalized float32 coordinates,
+    sorted by pair; without intrinsics, the focal the mapper guesses from
+    the image size. (Building them runs numpy only.)"""
+    from detectorfreesfm_tpu_torch.sfm.mapper import IncrementalMapper
+
+    mapper = IncrementalMapper(device="cpu")
+    rec = mapper._setup(keypoints, sizes, intrinsics)
+    return [(na, nb, m.astype(np.int64), x0, x1, f)
+            for na, nb, _ia, _ib, m, x0, x1, f in mapper.pair_jobs(
+                rec, match_indices)]
 
 
 def verify_batch(jobs):
@@ -1063,7 +1065,7 @@ def synthetic_inputs(keypoints, match_indices):
     _imgs, _d, K, q, t = generate_scene(0, SyntheticConfig(size=832,
                                                            n_views=4))
     names = [f"view_{i}" for i in range(4)]
-    jobs = pair_jobs(keypoints, match_indices,
+    jobs = pair_jobs(keypoints, match_indices, {n: (832, 832) for n in names},
                      {n: K[i] for i, n in enumerate(names)})
     return names, K, q, t, jobs
 
@@ -1071,12 +1073,7 @@ def synthetic_inputs(keypoints, match_indices):
 def demo_inputs(kps, matches):
     """demo_cached_832's pairs with the intrinsics IncrementalMapper._setup
     guesses from the image sizes."""
-    Ks = {}
-    for n in kps:
-        w, h = DEMO_SIZES[n]
-        f = FOCAL_FACTOR * max(w, h)
-        Ks[n] = np.array([[f, 0, w / 2.0], [0, f, h / 2.0], [0, 0, 1.0]])
-    return pair_jobs(kps, matches, Ks)
+    return pair_jobs(kps, matches, {n: DEMO_SIZES[n] for n in kps})
 
 
 def geometry_reference(backend, keypoints, match_indices, demo_kps,
@@ -1304,7 +1301,7 @@ def geometry_phase(keypoints, match_indices):
         laps[name] = now - last[0]
         last[0] = now
 
-    card, cpu = PortGeometry("cuda"), PortGeometry("cpu")
+    card = PortGeometry("cuda")
     steps = {}
     workdir = os.path.join(REPO, "build", "smoke_geometry")
     os.makedirs(workdir, exist_ok=True)
@@ -1315,11 +1312,6 @@ def geometry_phase(keypoints, match_indices):
                            host_s=wall - timer.seconds,
                            host_share=(wall - timer.seconds) / max(wall, 1e-9),
                            **extra)
-
-    def cpu_time(fn, *args):
-        t0 = time.time()
-        fn(*args)
-        return time.time() - t0
 
     # 1. Match store.
     t0, timer = time.time(), Timer()
@@ -1353,20 +1345,15 @@ def geometry_phase(keypoints, match_indices):
     jobs_b = demo_inputs(demo_kps, demo_matches)
     lap("inputs")
     # First calls (cuSOLVER/cuBLAS handles, lazy kernel loading, torch.func
-    # tracing), timed apart from the steps, on both devices.
-    steps["warmup"] = dict(card_s=_warm_up(card, jobs_b[:1]),
-                           cpu_s=_warm_up(cpu, jobs_b[:1]))
+    # tracing), timed apart from the steps.
+    steps["warmup"] = dict(card_s=_warm_up(card, jobs_b[:1]))
     lap("warmup")
     res = {}
     for tag, jobs in (("a", jobs_a), ("b", jobs_b)):
         t0, timer = time.time(), Timer()
-        res[tag], batch = two_view(card, jobs, timer)
-        x0, x1, mask, thr, keys_e, keys_h = batch
+        res[tag], (x0, *_rest) = two_view(card, jobs, timer)
         step(f"two_view_{tag}", t0, timer, pairs=len(jobs),
              n_pad=int(x0.shape[1]))
-        steps[f"two_view_{tag}"]["cpu_calls_s"] = (
-            cpu_time(cpu.relpose, x0, x1, mask, keys_e, thr, N_HYP)
-            + cpu_time(cpu.homography, x0, x1, mask, keys_h, thr, N_HYP_H))
     lap("two_view")
     profile = _profile_two_view(card, jobs_b[:2])
     lap("two_view_profile")
@@ -1393,13 +1380,6 @@ def geometry_phase(keypoints, match_indices):
     t0, timer = time.time(), Timer()
     reg = register(card, tracks, ids, keypoints, K, q, t, names, timer)
     step("registration", t0, timer)
-    # The same port calls with device="cpu" (placement data).
-    cpu_timer = Timer()
-    register(cpu, tracks, ids, keypoints, K, q, t, names, cpu_timer)
-    steps["registration"]["cpu_calls_s"] = cpu_timer.seconds
-    cpu_timer = Timer()
-    triangulate(cpu, tracks, ids, keypoints, K, q, t, names, cpu_timer)
-    steps["tracks_triangulation"]["cpu_calls_s"] = cpu_timer.seconds
 
     lap("registration")
     # 5. Bundle adjustment.
@@ -1409,15 +1389,16 @@ def geometry_phase(keypoints, match_indices):
     out_i, info_i = card.ba(args, kw)
     card_i = time.time() - t0
     out_i2, _ = card.ba(args, kw)
-    t0 = time.time()
-    cpu_i, _ = cpu.ba(args, kw)
     ba["i"] = dict(cameras=4, points=len(args[3]), observations=len(args[4]),
-                   card_s=card_i, cpu_s=time.time() - t0,
-                   cost_per_obs=out_i[4], cpu_cost_per_obs=cpu_i[4],
+                   card_s=card_i, cost_per_obs=out_i[4],
                    rerun_cost_diff=abs(out_i2[4] - out_i[4]),
                    rerun_max_point_diff=float(np.abs(out_i2[3]
                                                      - out_i[3]).max()),
                    **info_i)
+    # BA's sums are deterministic: a rerun gives the same bits.
+    check(ba["i"]["rerun_cost_diff"] == 0.0
+          and ba["i"]["rerun_max_point_diff"] == 0.0, "BA (i) rerun differs",
+          ba["i"]["rerun_cost_diff"], ba["i"]["rerun_max_point_diff"])
     lap("ba_i")
     args2, kw2, _K2 = ba_synthetic(60, 15000, seed=3)
     lap("ba_ii_problem")
@@ -1430,9 +1411,6 @@ def geometry_phase(keypoints, match_indices):
                                 observations=len(args2[4]),
                                 card_s=time.time() - t0,
                                 cost_per_obs=sol[mode][0][4], **sol[mode][1])
-    t0 = time.time()
-    cpu.ba(args2, dict(kw2, schur_mode="dense"))
-    ba["ii_dense"]["cpu_s"] = time.time() - t0
     (qd, td, _i, _p, cd), (qp, tp, _i2, _p2, cp) = sol["dense"][0], \
         sol["pcg"][0]
     check(np.allclose(cd, cp, rtol=0.1, atol=1e-3)
@@ -1503,6 +1481,295 @@ def _profile_two_view(backend, jobs):
                   e.cpu_time_total / 1e3) for e in ops])
 
 
+# ---------------------------------------------------------------------------
+# The sfm phase: the incremental mapper and two refinement iterations on the
+# card. Inputs: (a) the main path's merged matches with the true intrinsics
+# and without, (b) demo_cached_832 and (c) demo_cached (416 px) from the npz
+# copies in tests/data/torch/, (d) refinement of (a)'s known-intrinsics
+# model on the main path's images with the r4 refiner. The JAX numbers were
+# recorded through sfm_reference() with the JAX package's mapper and
+# refinement (`python tests/test_torch_mapper.py --record`, on the CPU).
+# ---------------------------------------------------------------------------
+
+REFINER_WEIGHTS = os.path.join(REPO, "weights",
+                               "demo_refiner_r4_bf16.msgpack")
+DEMO_416 = os.path.join(REPO, "tests", "data", "torch", "demo_cached")
+SFM_REFINE_ITERS = 2
+
+# The JAX package's numbers on the same inputs (recorded on the CPU, one
+# device; the refinement took 1287 s there).
+JAX_SFM = {'a_known': {'mean_reproj_px': 0.6774333983607213,
+             'median_rot_err_deg': 0.011017380027398214,
+             'n_points': 8667,
+             'registered': ['view_0', 'view_1', 'view_2', 'view_3'],
+             'rot_err_deg': {'view_0': 0.0,
+                             'view_1': 0.009410772067900069,
+                             'view_2': 0.01262398798689636,
+                             'view_3': 0.02845509790515406}},
+ 'a_unknown': {'mean_reproj_px': 0.8764254034401175,
+               'median_rot_err_deg': 4.6170957360619145,
+               'n_points': 8654,
+               'registered': ['view_0', 'view_1', 'view_2', 'view_3'],
+               'rot_err_deg': {'view_0': 0.0,
+                               'view_1': 3.7871327419988585,
+                               'view_2': 10.856113865994361,
+                               'view_3': 5.447058730124971}},
+ 'b': {'mean_reproj_px': 2.7890114200199227,
+       'n_points': 1193,
+       'registered': ['00318781_8039756060.jpg',
+                      '01606161_5223112207.jpg',
+                      '02786360_4030483701.jpg',
+                      '02928139_3448003521.jpg',
+                      '03599123_13889501361.jpg',
+                      '04398000_3306414527.jpg',
+                      '04408102_2916920065.jpg',
+                      '04477856_4856961901.jpg']},
+ 'c': {'mean_reproj_px': 5.301961139816039,
+       'n_points': 495,
+       'registered': ['00318781_8039756060.jpg',
+                      '01606161_5223112207.jpg',
+                      '02786360_4030483701.jpg',
+                      '02928139_3448003521.jpg',
+                      '03599123_13889501361.jpg',
+                      '04398000_3306414527.jpg',
+                      '04408102_2916920065.jpg',
+                      '04477856_4856961901.jpg']},
+ 'd': {'counts': [{'completed': 12,
+                   'filtered': 57,
+                   'merged': 10,
+                   'tracks': 8667},
+                  {'completed': 0,
+                   'filtered': 616,
+                   'merged': 0,
+                   'tracks': 8653}],
+       'error': None,
+       'iterations_completed': 2,
+       'mean_reproj_px': 0.978155923891749,
+       'median_rot_err_deg': 0.0448428173181411,
+       'median_shift_px_0': 1.4705456095892053,
+       'n_points': 8576,
+       'registered': ['view_0', 'view_1', 'view_2', 'view_3'],
+       'rot_err_deg': {'view_0': 0.0,
+                       'view_1': 0.030862740092690053,
+                       'view_2': 0.0731668789914375,
+                       'view_3': 0.058822894543592144}}}
+
+
+def demo_mapper_kwargs(kps, side):
+    """MapperConfig of tests/run_demo832.py (side 832) and
+    tests/test_demo_golden.py (side 416): thresholds scaled by the mean
+    long side over the matching resolution."""
+    f = max(1.0, float(np.mean([max(DEMO_SIZES[n]) for n in kps])) / side)
+    return dict(geometry_verify_thr=10 * f, init_max_error=10 * f,
+                abs_pose_max_error=12 * f, filter_max_reproj_error=10 * f,
+                tri_merge_max_reproj_error=10 * f,
+                tri_complete_max_reproj_error=10 * f,
+                abs_pose_min_num_inliers=8, refine_focal=True,
+                min_model_size=3, min_tri_angle_deg=1.0)
+
+
+def model_numbers(rec, names=None, q=None):
+    """Registered names, points and mean reprojection error of a model;
+    with the true rotations q (in `names` order), each registered image's
+    rotation error in degrees relative to the first registered image."""
+    if rec is None:
+        return dict(registered=[], n_points=0, mean_reproj_px=float("inf"))
+    errs = np.concatenate(list(rec.reprojection_errors().values()))
+    out = dict(registered=sorted(rec.images[i].name
+                                 for i in rec.registered_images),
+               n_points=len(rec.points), mean_reproj_px=float(errs.mean()))
+    if q is not None:
+        reg = sorted(rec.registered_images)
+        R_true = _rotmat(q)
+        a = reg[0]
+        Ra, Ta = _rotmat(rec.images[a].qvec), R_true[names.index(
+            rec.images[a].name)]
+        rot = {}
+        for i in reg:
+            c = names.index(rec.images[i].name)
+            rot[rec.images[i].name] = _angle_deg(
+                (_rotmat(rec.images[i].qvec) @ Ra.T) @ (R_true[c] @ Ta.T).T)
+        out["rot_err_deg"] = rot
+        out["median_rot_err_deg"] = float(np.median(list(rot.values())))
+    return out
+
+
+def demo_caches():
+    """{tag: (keypoints, matches, side)} of the two cached demo scenes."""
+    from detectorfreesfm_tpu_torch.data.h5io import load_h5
+
+    out = {}
+    for tag, d, side in (("b", DEMO_832, 832), ("c", DEMO_416, 416)):
+        kps = load_h5(os.path.join(d, "keypoints.h5"), False)
+        raw = load_h5(os.path.join(d, "matches.h5"), False)
+        out[tag] = (kps, {tuple(k.split("|")): v.astype(np.int32)
+                          for k, v in raw.items()}, side)
+    return out
+
+
+def sfm_reference(backend, keypoints, match_indices, demo):
+    """The gated numbers of the sfm phase through one backend (the port's
+    mapper and refinement, or the JAX package's), with each run's report.
+    `backend.mapper(**cfg)` makes a mapper; `backend.refine(rec, images,
+    mapper)` refines in place and returns its info dict."""
+    from detectorfreesfm_tpu_torch.data.synthetic import (
+        SyntheticConfig,
+        generate_scene,
+    )
+
+    imgs, _d, K, q, _t = generate_scene(0, SyntheticConfig(size=832,
+                                                           n_views=4))
+    names = [f"view_{i}" for i in range(4)]
+    sizes = {n: (832, 832) for n in names}
+    got, report, models = {}, {}, {}
+    for tag, intr in (("a_known", {n: K[i] for i, n in enumerate(names)}),
+                      ("a_unknown", None)):
+        mapper = backend.mapper()
+        t0 = time.time()
+        rec = mapper.run(keypoints, match_indices, sizes, intr)
+        report[tag] = dict(wall_s=time.time() - t0,
+                           steps_s=dict(getattr(mapper, "times", {})),
+                           calls=dict(getattr(mapper, "calls", {})))
+        got[tag] = model_numbers(rec, names, q)
+        models[tag] = (rec, mapper)
+    for tag, (kps, matches, side) in demo.items():
+        mapper = backend.mapper(**demo_mapper_kwargs(kps, side))
+        t0 = time.time()
+        rec = mapper.run(kps, matches, {n: DEMO_SIZES[n] for n in kps}, None)
+        report[tag] = dict(wall_s=time.time() - t0,
+                           steps_s=dict(getattr(mapper, "times", {})),
+                           calls=dict(getattr(mapper, "calls", {})))
+        got[tag] = model_numbers(rec)
+    rec, mapper = models["a_known"]
+    images = {rec.image_by_name(n).id: imgs[i] for i, n in enumerate(names)}
+    t0 = time.time()
+    info = backend.refine(rec, images, mapper)
+    its = info["iterations"]
+    report["d"] = dict(wall_s=time.time() - t0, **info)
+    got["d"] = dict(
+        model_numbers(rec, names, q),
+        iterations_completed=info["iterations_completed"],
+        error=info["error"],
+        median_shift_px_0=its[0]["median_shift_px"] if its else None,
+        counts=[dict(tracks=i["tracks"], merged=i["merged"],
+                     completed=i["completed"], filtered=i["filtered"])
+                for i in its])
+    return got, report
+
+
+class PortSfm:
+    """The port's mapper and refinement on one device."""
+
+    def __init__(self, device):
+        from detectorfreesfm_tpu_torch.utils.checkpoint import (
+            load_refiner_params,
+        )
+
+        self.device = device
+        self.params = load_refiner_params(REFINER_WEIGHTS, device=device)
+
+    def mapper(self, **cfg):
+        from detectorfreesfm_tpu_torch.sfm.mapper import (
+            IncrementalMapper,
+            MapperConfig,
+        )
+
+        return IncrementalMapper(MapperConfig(**cfg), device=self.device)
+
+    def refine(self, rec, images, mapper):
+        from detectorfreesfm_tpu_torch.refine.loop import (
+            RefineConfig,
+            refine_reconstruction,
+        )
+
+        info = {}
+        refine_reconstruction(rec, images, self.params,
+                              RefineConfig(n_iters=SFM_REFINE_ITERS),
+                              mapper=mapper, device=self.device, info=info)
+        return info
+
+
+def _check_sfm_gates(got, ref):
+    """Hold the card's mapper and refinement numbers to the JAX package's."""
+    for tag in ("a_known", "a_unknown"):
+        g, r = got[tag], ref[tag]
+        check(g["registered"] == r["registered"], tag, "registered",
+              g["registered"], r["registered"])
+        check(abs(g["n_points"] - r["n_points"]) <= 0.01 * r["n_points"],
+              tag, "points", g["n_points"], r["n_points"])
+        check(abs(g["mean_reproj_px"] - r["mean_reproj_px"]) <= 0.05, tag,
+              "mean reprojection", g["mean_reproj_px"], r["mean_reproj_px"])
+        for n, e in g["rot_err_deg"].items():
+            check(abs(e - r["rot_err_deg"][n]) <= 0.05, tag, "rotation", n,
+                  e, r["rot_err_deg"][n])
+    g, r = got["b"], ref["b"]
+    check(len(g["registered"]) == 8 and g["n_points"] >= 1000
+          and g["mean_reproj_px"] < 5.0, "b: demo_cached_832 bars", g)
+    check(g["registered"] == r["registered"]
+          and abs(g["n_points"] - r["n_points"]) <= 0.02 * r["n_points"],
+          "b: against JAX", g, r)
+    g = got["c"]
+    check(len(g["registered"]) >= 4 and g["n_points"] >= 200
+          and g["mean_reproj_px"] < 8.0, "c: demo_cached bars", g)
+    g, r = got["d"], ref["d"]
+    check(g["iterations_completed"] == SFM_REFINE_ITERS and g["error"] is None,
+          "d: refinement iterations", g["iterations_completed"], g["error"])
+    check(len(g["registered"]) == len(r["registered"]), "d: registered",
+          g["registered"], r["registered"])
+    check(abs(g["n_points"] - r["n_points"]) <= 0.02 * r["n_points"],
+          "d: points", g["n_points"], r["n_points"])
+    check(abs(g["mean_reproj_px"] - r["mean_reproj_px"]) <= 0.05,
+          "d: mean reprojection", g["mean_reproj_px"], r["mean_reproj_px"])
+    check(abs(g["median_rot_err_deg"] - r["median_rot_err_deg"]) <= 0.05,
+          "d: median rotation", g["median_rot_err_deg"],
+          r["median_rot_err_deg"])
+    check(abs(g["median_shift_px_0"] - r["median_shift_px_0"])
+          <= 0.05 * r["median_shift_px_0"], "d: median shift of iteration 0",
+          g["median_shift_px_0"], r["median_shift_px_0"])
+
+
+def sfm_phase(keypoints, match_indices):
+    """The mapper and refinement on the card from the main path's matches
+    and the cached demo matches; held to JAX_SFM."""
+    t_phase = time.time()
+    workdir = os.path.join(REPO, "build", "smoke_sfm")
+    os.makedirs(workdir, exist_ok=True)
+    t0 = time.time()
+    backend = PortSfm("cuda")
+    load_s = time.time() - t0
+    got, report = sfm_reference(backend, keypoints, match_indices,
+                                demo_caches())
+    summary = dict(sfm_summary(report), sfm_s=time.time() - t_phase,
+                   refiner_load_s=load_s)
+    full = dict(summary, got=got, jax=JAX_SFM, report=report)
+    # The full report, kept also when a gate below fails.
+    with open(os.path.join(workdir, "sfm.json"), "w") as f:
+        json.dump(full, f, indent=1, default=float)
+    _check_sfm_gates(got, JAX_SFM)
+    return dict(summary, got=got)
+
+
+def sfm_summary(report):
+    """What the sfm phase prints: the mapper's seconds per step and per
+    run, and per refinement iteration the refiner's device ms per chunk,
+    the geometry refinement's seconds and the merge/complete/filter
+    counts."""
+    d = report["d"]
+    return dict(
+        mapper_steps_s={k: v["steps_s"] for k, v in report.items()
+                        if k != "d"},
+        mapper_wall_s={k: v["wall_s"] for k, v in report.items()
+                       if k != "d"},
+        refine=[dict(tracks=i["tracks"], window=i["window"],
+                     chunks=i["chunks"],
+                     forward_ms_per_chunk=float(np.median(i["forward_ms"])),
+                     forward_ms_total=float(np.sum(i["forward_ms"])),
+                     match_s=i["match_s"], geometry_s=i["geometry_s"],
+                     merged=i["merged"], completed=i["completed"],
+                     filtered=i["filtered"]) for i in d["iterations"]],
+        refine_wall_s=d["wall_s"])
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1562,6 +1829,9 @@ def main():
 
     geo = geometry_phase(keypoints, match_indices)
     emit({"phase": "geometry", **geo})
+
+    sfm = sfm_phase(keypoints, match_indices)
+    emit({"phase": "sfm", **sfm})
 
     replaces = {
         "dsm_pass1": "detectorfreesfm_tpu/ops/pallas_dsm.py:98 (_pass1_kernel)",

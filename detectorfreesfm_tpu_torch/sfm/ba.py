@@ -16,9 +16,13 @@ mesh-sharded one is not ported):
     120 cameras by matrix-free PCG with the Schur-Jacobi preconditioner.
   * Huber weights re-evaluated each iteration (IRLS form).
 
-Reductions are `index_add_`, which on CUDA accumulates with float atomics:
-the last bits of a step vary from run to run. The host driver normalizes
-the scene in float64 numpy; the solve runs in float32 with TF32 off.
+Reductions are `index_add_` in torch's deterministic mode (on CUDA a
+sort-based accumulation, not float atomics): the mapper calls BA on real
+scenes where it stops unconverged after 30 iterations, and there
+atomics' run-to-run last bits grew into a different model (1 193 or 948
+points on demo_cached_832 from the same input, on an H100). The host driver
+normalizes the scene in float64 numpy; the solve runs in float32 with
+TF32 off.
 """
 
 from __future__ import annotations
@@ -57,10 +61,22 @@ class BAProblem(NamedTuple):
     refine_dist: bool
 
 
+def _index_add(out, ids, data):
+    """out.index_add_(0, ids, data), the same sums in the same order on
+    every run (torch's deterministic mode, restored after)."""
+    mode = torch.are_deterministic_algorithms_enabled()
+    warn = torch.is_deterministic_algorithms_warn_only_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        return out.index_add_(0, ids, data)
+    finally:
+        torch.use_deterministic_algorithms(mode, warn_only=warn)
+
+
 def _segment_sum(data, ids, n):
     out = torch.zeros((n,) + data.shape[1:], dtype=data.dtype,
                       device=data.device)
-    return out.index_add_(0, ids, data)
+    return _index_add(out, ids, data)
 
 
 def _proj(R, t, f_scale, intr, X, dk=0.0):
@@ -208,7 +224,7 @@ def lm_step(prob: BAProblem, lam, huber_delta: float = 2.0):
     pair = torch.einsum("ptkm,pslm->ptskl", Yt, Wt)           # (P,T,T,8,8)
     lin = (cams_t[:, :, None] * C + cams_t[:, None, :]).reshape(-1)
     S = torch.zeros(C * C, CAM_DOF, CAM_DOF, dtype=dtype, device=U.device)
-    S.index_add_(0, lin, pair.reshape(-1, CAM_DOF, CAM_DOF))
+    _index_add(S, lin, pair.reshape(-1, CAM_DOF, CAM_DOF))
     S = -S.reshape(C, C, CAM_DOF, CAM_DOF)
     diag = torch.arange(C, device=U.device)
     S[diag, diag] += U

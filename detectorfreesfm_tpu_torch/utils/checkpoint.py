@@ -1,6 +1,7 @@
 """Flax msgpack checkpoints -> the port's state_dicts.
 
-Counterpart of the JAX package's train/selfsup.py `load_matcher_params`.
+Counterpart of the JAX package's train/selfsup.py `load_matcher_params` and
+train/refiner_selfsup.py `load_refiner_params`.
 The checkpoint is decoded with the pure-Python utils/msgpack_lite.py, and
 each flax leaf maps by name onto the port's module tree:
 
@@ -144,3 +145,19 @@ def load_matcher_params(path: str, cfg=None) -> Dict[str, torch.Tensor]:
               f"(kept at random init): {missing[:4]}")
     state.update(fresh_fine_head(cfg))
     return state
+
+
+def load_refiner_params(path: str, cfg=None, device=None
+                        ) -> Dict[str, torch.Tensor]:
+    """The port's MultiviewRefiner state_dict from a flax checkpoint, on
+    `device` (None: CUDA, and raises without it). Strict: every leaf is
+    used and every parameter filled, with the shapes of `cfg`."""
+    from ..device import resolve_device
+    from ..models.multiview_matcher import MultiviewRefiner, RefinerConfig
+
+    dev = resolve_device(device)
+    state = flax_variables_to_state_dict(read_variables(path))
+    with torch.device("meta"):
+        template = MultiviewRefiner(cfg or RefinerConfig()).state_dict()
+    match_state_dict(state, template)
+    return {k: v.to(dev) for k, v in state.items()}

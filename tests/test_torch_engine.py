@@ -171,6 +171,7 @@ def test_fused_engine_matches_dense_engine(engine_outputs):
 
 _IMPORT_PROBE = r"""
 import sys, numpy as np, torch
+torch.set_num_threads(1)  # beside the suite's other workers
 sys.path.insert(0, {repo!r})
 from detectorfreesfm_tpu_torch.match import engine
 from detectorfreesfm_tpu_torch.data.images import from_array
@@ -221,6 +222,40 @@ with tempfile.TemporaryDirectory() as d:
     model_select.best_model([rec])
     database.export_scene_to_database(os.path.join(d, "x.db"), {{}}, {{}},
                                       {{}})
+# The mapper and refinement slice, end to end at a tiny size; scipy only
+# once merge_tracks runs.
+from detectorfreesfm_tpu_torch.models import multiview_matcher, s2dnet
+from detectorfreesfm_tpu_torch.ops import roi_align
+from detectorfreesfm_tpu_torch.refine import bags, loop
+from detectorfreesfm_tpu_torch.sfm import mapper
+from detectorfreesfm_tpu_torch.utils.checkpoint import load_refiner_params
+assert "scipy" not in sys.modules, "scipy imported at module level"
+pts = rng.uniform(-1, 1, (120, 3)) + [0, 0, 6]
+K = np.array([[300.0, 0, 160], [0, 300.0, 120], [0, 0, 1]])
+kps = {{}}
+for i in range(4):
+    a = (i - 1.5) * 0.3
+    R = np.array([[np.cos(a), 0, np.sin(a)], [0, 1, 0],
+                  [-np.sin(a), 0, np.cos(a)]])
+    Xc = (pts - [6 * np.sin(a), 0, 6 - 6 * np.cos(a)]) @ R.T
+    kps[f"im{{i}}"] = ((Xc / Xc[:, 2:]) @ K.T)[:, :2]
+ids = np.stack([np.arange(120)] * 2, 1).astype(np.int32)
+mp = mapper.IncrementalMapper(mapper.MapperConfig(
+    abs_pose_min_num_inliers=15), device="cpu")
+rec = mp.run(kps, {{(a, b): ids for a in kps for b in kps if a < b}},
+             {{n: (320, 240) for n in kps}}, {{n: K for n in kps}})
+assert len(rec.registered_images) == 4, rec.registered_images
+info = {{}}
+loop.refine_reconstruction(
+    rec, {{i: rng.uniform(size=(240, 320)).astype(np.float32)
+          for i in rec.images}},
+    load_refiner_params(os.path.join(os.path.dirname({weights!r}),
+                                     "demo_refiner_r4_bf16.msgpack"),
+                        device="cpu"),
+    loop.RefineConfig(n_iters=1, windows=(7,), chunk_tracks=64,
+                      max_track_length=4),
+    mapper=mp, device="cpu", info=info)
+assert info["iterations_completed"] == 1, info
 banned = ("jax", "jaxlib", "flax", "msgpack", "h5py", "PIL",
           "detectorfreesfm_tpu")
 bad = sorted(m for m in sys.modules if m.split(".")[0] in banned)
@@ -231,9 +266,10 @@ sys.exit(1 if bad else 0)
 
 def test_port_imports_no_jax_or_missing_packages():
     """In a fresh interpreter (conftest imports jax into this one), the
-    port's forward on the CPU, and every geometry, store and estimator
-    module of the port run once at a tiny size, pull in none of jax, flax,
-    msgpack, h5py, PIL or the JAX package."""
+    port's forward on the CPU, every geometry, store and estimator module,
+    and the mapper and one refinement iteration, run once at a tiny size,
+    pull in none of jax, flax, msgpack, h5py, PIL or the JAX package, and
+    scipy only where merge_tracks needs it."""
     code = _IMPORT_PROBE.format(repo=REPO, weights=WEIGHTS)
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
                           text=True, timeout=300)

@@ -343,3 +343,120 @@ def test_cholesky_failure_on_the_card_is_a_nan_step():
         refine_focal=True, refine_dist=True)
     step = ba.lm_step(prob, torch.tensor(-1.5, device=dev))
     assert not torch.isfinite(step[1]).all()
+
+
+def _demo_cached():
+    from detectorfreesfm_tpu_torch.data.h5io import load_h5
+
+    d = os.path.join(REPO, "tests", "data", "torch", "demo_cached")
+    kps = load_h5(os.path.join(d, "keypoints.h5"), False)
+    raw = load_h5(os.path.join(d, "matches.h5"), False)
+    return kps, {tuple(k.split("|")): v.astype(np.int32)
+                 for k, v in raw.items()}
+
+
+@pytest.mark.cuda
+def test_mapper_verify_pairs_on_the_card_equals_the_cpu():
+    """demo_cached with focal search: the same kept pairs, inlier counts
+    within 1% (rounded up to a whole inlier)."""
+    _needs_cuda()
+    import sys
+
+    sys.path.insert(0, REPO)
+    import chip_smoke
+    from detectorfreesfm_tpu_torch.sfm.mapper import (
+        IncrementalMapper,
+        MapperConfig,
+    )
+
+    kps, matches = _demo_cached()
+    sizes = {n: chip_smoke.DEMO_SIZES[n] for n in kps}
+    cfg = MapperConfig(**chip_smoke.demo_mapper_kwargs(kps, 416))
+    out = []
+    for dev in ("cuda", "cpu"):
+        mapper = IncrementalMapper(cfg, device=dev)
+        rec = mapper._setup(kps, sizes, None)
+        out.append(mapper.verify_pairs(rec, matches, focal_search=True))
+    card, cpu = out
+    assert sorted(card) == sorted(cpu) and len(cpu) > 20
+    for k, r in cpu.items():
+        tol = int(np.ceil(0.01 * r["n_inliers"]))
+        assert abs(card[k]["n_inliers"] - r["n_inliers"]) <= tol, k
+
+
+@pytest.mark.cuda
+def test_refiner_forward_on_the_card_equals_the_cpu():
+    """The r4 refiner at crop 19 / window 15: coords within 1e-3 px."""
+    _needs_cuda()
+    from detectorfreesfm_tpu_torch.core.precision import geometry_precision
+    from detectorfreesfm_tpu_torch.models.multiview_matcher import (
+        MultiviewRefiner,
+    )
+    from detectorfreesfm_tpu_torch.utils.checkpoint import (
+        load_refiner_params,
+    )
+
+    rng = np.random.default_rng(0)
+    I, T, V = 3, 64, 6
+    inputs = (rng.uniform(0, 1, (I, 96, 96, 1)).astype(np.float32),
+              rng.integers(0, I, (T, V)), rng.uniform(
+                  0, 96, (T, V, 2)).astype(np.float32),
+              rng.uniform(0.7, 1.4, (T, V)).astype(np.float32),
+              rng.uniform(size=(T, V)) > 0.2)
+    path = os.path.join(REPO, "weights", "demo_refiner_r4_bf16.msgpack")
+    out = []
+    for dev in ("cuda", "cpu"):
+        model = MultiviewRefiner().eval()
+        model.load_state_dict(load_refiner_params(path, device=dev))
+        model.to(dev)
+        with geometry_precision(), torch.no_grad():
+            out.append(model(*(torch.as_tensor(a, device=dev)
+                               for a in inputs)).coords.cpu())
+    assert (out[0] - out[1]).abs().max().item() <= 1e-3
+
+
+@pytest.mark.cuda
+def test_mapper_and_refinement_run_on_cuda_by_default():
+    """IncrementalMapper(), load_refiner_params and refine_reconstruction
+    without a device run on the card."""
+    _needs_cuda()
+    from detectorfreesfm_tpu_torch.refine.loop import (
+        RefineConfig,
+        refine_reconstruction,
+    )
+    from detectorfreesfm_tpu_torch.sfm.mapper import (
+        IncrementalMapper,
+        MapperConfig,
+    )
+    from detectorfreesfm_tpu_torch.utils.checkpoint import (
+        load_refiner_params,
+    )
+
+    rng = np.random.default_rng(1)
+    pts = rng.uniform(-1, 1, (150, 3)) + [0, 0, 6]
+    K = np.array([[300.0, 0, 160], [0, 300.0, 120], [0, 0, 1]])
+    kps = {}
+    for i in range(4):
+        a = (i - 1.5) * 0.3
+        R = np.array([[np.cos(a), 0, np.sin(a)], [0, 1, 0],
+                      [-np.sin(a), 0, np.cos(a)]])
+        Xc = (pts - [6 * np.sin(a), 0, 6 - 6 * np.cos(a)]) @ R.T
+        kps[f"im{i}"] = ((Xc / Xc[:, 2:]) @ K.T)[:, :2]
+    ids = np.stack([np.arange(150)] * 2, 1).astype(np.int32)
+    mapper = IncrementalMapper(MapperConfig(abs_pose_min_num_inliers=15))
+    assert mapper.device.type == "cuda"
+    rec = mapper.run(kps, {(a, b): ids for a in kps for b in kps if a < b},
+                     {n: (320, 240) for n in kps}, {n: K for n in kps})
+    assert len(rec.registered_images) == 4
+    params = load_refiner_params(os.path.join(
+        REPO, "weights", "demo_refiner_r4_bf16.msgpack"))
+    assert all(v.is_cuda for v in params.values())
+    torch.cuda.reset_peak_memory_stats()
+    info = {}
+    refine_reconstruction(
+        rec, {i: rng.uniform(size=(240, 320)).astype(np.float32)
+              for i in rec.images}, params,
+        RefineConfig(n_iters=1, windows=(7,), chunk_tracks=64,
+                     max_track_length=4), mapper=mapper, info=info)
+    assert info["iterations_completed"] == 1 and info["error"] is None
+    assert torch.cuda.max_memory_allocated() > 0
