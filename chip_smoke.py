@@ -34,9 +34,21 @@ standard library, numpy, torch and the port. Phases, one JSON line each:
            recorded with `python tests/test_torch_mapper.py --record`, with
            the mapper's seconds per step and the refiner's device ms per
            chunk; full report in build/smoke_sfm/sfm.json
+  reconstruct
+           `detectorfreesfm_tpu_torch.cli reconstruct` on a 4-view 1040 px
+           scene written as PNG files (run A, --fused on, every other
+           option at its default: r5 matcher at 832 px, coarse_fine, batch
+           8, mapper, two refinement iterations with the r4 refiner), held
+           to the JAX package's own CLI on the same files (recorded with
+           `python tests/test_torch_pipeline.py --record`); run B, the
+           same command in a subprocess, resumes without matching; run C,
+           12 views (66 pairs), must complete; fused against dense
+           matching at 832 px; full report in
+           build/smoke_reconstruct/reconstruct.json
 
-Any failed check raises (non-zero exit). The last two lines are the
-kernels summary and {"ok": true, "device": {...}}.
+The build phase also builds the native image loader (g++, -ljpeg -lpng)
+and says whether it linked. Any failed check raises (non-zero exit). The
+last two lines are the kernels summary and {"ok": true, "device": {...}}.
 """
 
 import json
@@ -63,6 +75,9 @@ JAX_TOTAL_VALID = 12288          # 2048 (the top-K capacity) on each pair
 JAX_MEDIAN_EPIPOLAR_PX = 1.0242514909205727
 
 MAIN_SHAPE = dict(b=2, l=10816, s=10816, c=256)
+# The verb's batch of 8 pairs at 832 px, the shape that the reconstruct
+# phase's runs launch and that the `kernels` line reports.
+VERB_SHAPE = dict(b=8, l=10816, s=10816, c=256)
 RAGGED_SHAPE = dict(b=2, l=1000, s=777, c=256)
 ETH3D_SHAPE = dict(b=1, l=40000, s=40000, c=256)  # 1600 px, one pair
 # Device kernels of csrc/dual_softmax.cu, as the profiler names them.
@@ -1770,6 +1785,393 @@ def sfm_summary(report):
         refine_wall_s=d["wall_s"])
 
 
+# ---------------------------------------------------------------------------
+# The reconstruct phase: the `reconstruct` verb, as a user runs it, on PNG
+# files written to disk, held to the JAX package's own `cli reconstruct`
+# on the same files (`python tests/test_torch_pipeline.py --record`, on the
+# CPU: dense matching, batch 1, the JAX CLI's defaults off the TPU).
+# ---------------------------------------------------------------------------
+
+RECON_SIZE = 1040          # rendered larger than the 832 px network frame
+RECON_VIEWS = 4
+RECON_SCALE_VIEWS = 12     # run C: 66 pairs (cut from 16, PERF.md §4)
+RECON_BATCH = 8            # the verb's batch default on the card
+STAGE_KEYS = ("match", "coarse_sfm", "io", "refine")
+
+# The JAX package's `cli reconstruct` on the CPU from the same PNG files
+# (1068 s there; its stage times: match 36.41 s, coarse_sfm 29.65 s, io
+# 1.19 s, refine 962.74 s).
+JAX_RECONSTRUCT = {'coarse': {'grey_fraction': 0.008070510778379527,
+                              'mean_reproj_px': 0.8659090934902437,
+                              'n_observations': 20558,
+                              'n_points': 9417,
+                              'registered': ['view_000.png',
+                                             'view_001.png',
+                                             'view_002.png',
+                                             'view_003.png']},
+                   'refined': {'grey_fraction': 0.009235115167318557,
+                               'mean_reproj_px': 1.2088134577399503,
+                               'n_observations': 19751,
+                               'n_points': 9204,
+                               'registered': ['view_000.png',
+                                              'view_001.png',
+                                              'view_002.png',
+                                              'view_003.png']},
+                   'result': {'n_images': 4,
+                              'n_observations': 19751,
+                              'n_points': 9204,
+                              'n_registered': 4,
+                              'pose_auc': {'auc@1': 0.9321375260616918,
+                                           'auc@10': 0.9932137526061693,
+                                           'auc@20': 0.9966068763030845,
+                                           'auc@3': 0.9773791753538972,
+                                           'auc@5': 0.9864275052123384},
+                              'status': 'ok'}}
+
+
+def write_scene(root, seed=0, size=RECON_SIZE, n_views=RECON_VIEWS):
+    """generate_scene as a scene directory of the CLI's layout:
+    images/view_00k.png (8-bit gray, written by data/png.py with
+    adaptive row filters, as photographs are written),
+    poses/view_00k.txt (4x4 world-to-camera) and intrins/view_00k.txt
+    (3x3 K). Returns the image names and the true (K, q, t)."""
+    from detectorfreesfm_tpu_torch.data.png import write_png
+    from detectorfreesfm_tpu_torch.data.synthetic import (
+        SyntheticConfig,
+        generate_scene,
+        quat_to_rotmat,
+    )
+
+    imgs, _d, K, q, t = generate_scene(
+        seed, SyntheticConfig(size=size, n_views=n_views))
+    for sub in ("images", "poses", "intrins"):
+        os.makedirs(os.path.join(root, sub), exist_ok=True)
+    names = []
+    for i in range(n_views):
+        stem = f"view_{i:03d}"
+        names.append(stem + ".png")
+        write_png(os.path.join(root, "images", stem + ".png"),
+                  np.clip(np.round(imgs[i] * 255.0), 0, 255).astype(np.uint8))
+        pose = np.eye(4)
+        pose[:3, :3] = quat_to_rotmat(q[i])
+        pose[:3, 3] = t[i]
+        np.savetxt(os.path.join(root, "poses", stem + ".txt"), pose)
+        np.savetxt(os.path.join(root, "intrins", stem + ".txt"), K[i])
+    return names, K, q, t
+
+
+def run_reconstruct(cli_main, scene, out, *extra):
+    """One `reconstruct --scene scene --output out` through a CLI's main()
+    in this process (the port's, or the JAX package's when recording).
+    Returns its JSON result line with reconstruct_numbers(out), and the
+    run's stage times and wall seconds."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    t0 = time.time()
+    with contextlib.redirect_stdout(buf):
+        rc = cli_main(["reconstruct", "--scene", scene, "--output", out,
+                       *extra])
+    wall = time.time() - t0
+    printed = buf.getvalue()
+    check(rc == 0, "reconstruct exit code", rc, printed[-2000:])
+    result = json.loads(printed.strip().splitlines()[-1])
+    with open(os.path.join(out, "stage_times.json")) as f:
+        stages = json.load(f)
+    return (dict(result=result, **reconstruct_numbers(out)),
+            dict(stage_times=stages, wall_s=wall))
+
+
+def reconstruct_numbers(out_dir):
+    """What the reconstruct gates compare, read back from a run's output
+    directory: per model (colmap_coarse, colmap_refined) the registered
+    names, points, observations, mean reprojection error and the share of
+    points left grey (128, 128, 128)."""
+    from detectorfreesfm_tpu_torch.data import colmap_io
+    from detectorfreesfm_tpu_torch.sfm.reconstruction import Reconstruction
+
+    out = {}
+    for tag in ("coarse", "refined"):
+        cams, imgs, pts = colmap_io.read_model(
+            os.path.join(out_dir, f"colmap_{tag}"))
+        errs = Reconstruction.from_colmap(cams, imgs, pts
+                                          ).reprojection_errors()
+        e = np.concatenate(list(errs.values())) if errs else np.zeros(0)
+        rgb = np.stack([p.rgb for p in pts.values()]) if pts else None
+        out[tag] = dict(
+            registered=sorted(im.name for im in imgs.values()),
+            n_points=len(pts),
+            n_observations=int(sum(len(p.image_ids) for p in pts.values())),
+            mean_reproj_px=float(e.mean()) if e.size else float("inf"),
+            grey_fraction=(float((rgb == 128).all(axis=1).mean())
+                           if rgb is not None else 1.0))
+    return out
+
+
+RECON_FILES = (
+    "colmap_coarse/cameras.bin", "colmap_coarse/images.bin",
+    "colmap_coarse/points3D.bin", "colmap_refined/cameras.bin",
+    "colmap_refined/images.bin", "colmap_refined/points3D.bin",
+    "model_refined_0/images.bin", "model_refined_1/images.bin",
+    "colmap_refined/points.ply", "colmap_refined/cameras_points.ply",
+    "database.db", "stage_times.json")
+
+
+def written_files(out):
+    """What a run with two refinement iterations must leave in `out`: the
+    models, PLYs, database and stage times, and the match stores at the
+    path the store writes (h5io.stored_path). Returns what is missing."""
+    from detectorfreesfm_tpu_torch.pipeline import match_stores
+    from detectorfreesfm_tpu_torch.data.h5io import stored_path
+
+    missing = [f for f in RECON_FILES
+               if not os.path.exists(os.path.join(out, f))]
+    missing += [stored_path(p) for p in match_stores(out)
+                if not os.path.exists(stored_path(p))]
+    path = os.path.join(out, "stage_times.json")
+    if os.path.exists(path):
+        with open(path) as f:
+            keys = set(json.load(f))
+        missing += [f"stage_times.json:{k}" for k in STAGE_KEYS
+                    if k not in keys]
+    return missing
+
+
+def _check_reconstruct_gates(got, ref):
+    """Hold run A of the verb on the card to the JAX CLI's numbers."""
+    check(got["launches"] == {"dsm_pass1": 1, "dsm_pass2": 1},
+          "reconstruct: kernel launches", got["launches"])
+    check(got["result"]["status"] == "ok"
+          and got["result"].get("refine_iterations_completed") == 2,
+          "reconstruct: status", got["result"])
+    check(not got["missing_files"], "reconstruct: files missing",
+          got["missing_files"])
+    g, r = got["coarse"], ref["coarse"]
+    check(g["registered"] == r["registered"], "coarse: registered",
+          g["registered"], r["registered"])
+    check(abs(g["n_points"] - r["n_points"]) <= 0.01 * r["n_points"],
+          "coarse: points", g["n_points"], r["n_points"])
+    g, r = got["refined"], ref["refined"]
+    check(g["registered"] == r["registered"], "refined: registered",
+          g["registered"], r["registered"])
+    for k in ("n_points", "n_observations"):
+        check(abs(g[k] - r[k]) <= 0.02 * r[k], "refined:", k, g[k], r[k])
+    check(abs(g["mean_reproj_px"] - r["mean_reproj_px"]) <= 0.05,
+          "refined: mean reprojection", g["mean_reproj_px"],
+          r["mean_reproj_px"])
+    check(g["grey_fraction"] < 0.5, "refined: grey points",
+          g["grey_fraction"])
+    a, b = got["result"]["pose_auc"], ref["result"]["pose_auc"]
+    check(abs(a["auc@5"] - b["auc@5"]) <= 0.02, "AUC@5", a, b)
+
+
+def _match_timing(engine, image_dir, names, repeats=3):
+    """Warm seconds of the engine's whole match stage (decode, batches,
+    merge) over the scene's exhaustive pairs: the median of `repeats`."""
+    from detectorfreesfm_tpu_torch.match.pairs import exhaustive_pairs
+
+    pairs = exhaustive_pairs(names)
+    paths = {n: os.path.join(image_dir, n) for n in names}
+    engine.match_scene(pairs, paths)  # warm-up (cuDNN timing, decode)
+    times = []
+    for _ in range(repeats):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        engine.match_scene(pairs, paths)
+        torch.cuda.synchronize()
+        times.append(time.time() - t0)
+    return float(np.median(times)), times
+
+
+def _filter_counts(path):
+    """How many rows of a PNG file use each of the five row filters."""
+    import zlib
+
+    from detectorfreesfm_tpu_torch.data import png
+
+    with open(path, "rb") as f:
+        data = f.read()
+    idat = b"".join(b for k, b in png._chunks(data, path) if k == b"IDAT")
+    h = png.png_size(data, path)[1]
+    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, -1)
+    return np.bincount(rows[:, 0], minlength=5).tolist()
+
+
+def _decode_timing(paths, work):
+    """Seconds to decode and resize the images to the 832 px frame (the
+    backend images.load_gray picks), one after another and through the
+    8-thread pool the engine and the pipeline use, with the row filters
+    the files hold. Then, on the first file, data/png.py's C++ unfilter
+    against its Python fallback; and a 2080 px RGB file with adaptive
+    filters (2x2 tiles of three views as its colour channels), decoded
+    and resized as a user's photograph would be."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from detectorfreesfm_tpu_torch.data import images, png
+
+    def load(p):
+        return images.load_gray(p, 832, 8, 832)
+
+    t0 = time.time()
+    serial = [load(p) for p in paths]
+    serial_s = time.time() - t0
+    backend, unfilter = images.last_backend, png.last_unfilter
+    t0 = time.time()
+    with ThreadPoolExecutor(max_workers=8) as pool:
+        pooled = list(pool.map(load, paths))
+    pooled_s = time.time() - t0
+    check(all(np.array_equal(a.data, b.data) for a, b in zip(serial, pooled)),
+          "threaded decode differs")
+    with open(paths[0], "rb") as f:
+        data = f.read()
+    unfilter_s = {}
+    for how in ("native", "python"):
+        t0 = time.time()
+        px = png.decode_png(data, paths[0], unfilter=how).pixels
+        unfilter_s[how] = time.time() - t0
+        check(np.array_equal(px, png.read_png(paths[0]).pixels),
+              "unfilter", how)
+    views = [png.read_png(p).pixels for p in paths[:3]]
+    rgb = np.tile(np.stack(views, -1), (2, 2, 1))
+    big = os.path.join(work, "rgb_2080px.png")
+    png.write_png(big, rgb)
+    t0 = time.time()
+    big_img = load(big)
+    big_s = time.time() - t0
+    check(big_img.valid_size == (832, 832), "2080 px resize",
+          big_img.valid_size)
+    return dict(images=len(paths), backend=backend, unfilter=unfilter,
+                unfilter_error=png.native_error(),
+                row_filters=_filter_counts(paths[0]),
+                serial_s=serial_s, threads_8_s=pooled_s,
+                first_image_decode_s=unfilter_s,
+                rgb_2080px=dict(bytes=os.path.getsize(big),
+                                row_filters=_filter_counts(big),
+                                load_gray_s=big_s))
+
+
+def reconstruct_phase():
+    """The `reconstruct` verb on the card, as a user calls it, on a scene
+    written to disk: run A (gated against JAX_RECONSTRUCT), run B (a
+    resuming rerun in a subprocess) and run C (12 views, report-only
+    apart from completion); fused against dense matching at 832 px, and
+    image decoding serial against the verb's 8 threads."""
+    import dataclasses
+    import shutil
+
+    from detectorfreesfm_tpu_torch import cli, pipeline
+    from detectorfreesfm_tpu_torch.data import images
+    from detectorfreesfm_tpu_torch.data.h5io import stored_path
+    from detectorfreesfm_tpu_torch.match.engine import PairMatchingEngine
+    from detectorfreesfm_tpu_torch.ops import fused_dsm
+
+    t_phase = time.time()
+    work = os.path.join(REPO, "build", "smoke_reconstruct")
+    shutil.rmtree(work, ignore_errors=True)
+    scene = os.path.join(work, "scene")
+    out = os.path.join(work, "out")
+    t0 = time.time()
+    names, _K, _q, _t = write_scene(scene)
+    write_s = time.time() - t0
+
+    # Run A: the verb in this process, every option at its default but
+    # --fused on, so that the kernels are on the path.
+    for k in fused_dsm.launches:
+        fused_dsm.launches[k] = 0
+    images.last_backend = None
+    got, run_a = run_reconstruct(cli.main, scene, out, "--fused", "on")
+    got["launches"] = dict(fused_dsm.launches)
+    got["missing_files"] = written_files(out)
+    backend = images.last_backend
+    stores = [stored_path(p) for p in pipeline.match_stores(out)]
+    mtimes = [os.path.getmtime(p) for p in stores if os.path.exists(p)]
+
+    # Fused against dense at 832 px: the match stage of the verb's own
+    # engine (batch 8), warm, and a dense twin with the same weights.
+    (_key, fused_engine), = pipeline._ENGINE_CACHE.items()
+    dense_engine = PairMatchingEngine(
+        dataclasses.replace(fused_engine.cfg, fused_matching=False),
+        params=fused_engine.model.state_dict(), device="cuda")
+    image_dir = os.path.join(scene, "images")
+    fused_s, fused_runs = _match_timing(fused_engine, image_dir, names)
+    dense_s, dense_runs = _match_timing(dense_engine, image_dir, names)
+    del dense_engine
+
+    # Run B: the same command as a user's rerun, in a subprocess. It must
+    # read the stored matches and models, and not load the matcher.
+    t0 = time.time()
+    proc = subprocess.run(
+        [sys.executable, "-m", "detectorfreesfm_tpu_torch.cli",
+         "reconstruct", "--scene", scene, "--output", out, "--fused", "on"],
+        cwd=REPO, capture_output=True, text=True, timeout=600)
+    b_wall = time.time() - t0
+    check(proc.returncode == 0, "run B exit code", proc.returncode,
+          proc.stderr[-2000:])
+    result_b = json.loads(proc.stdout.strip().splitlines()[-1])
+    run_b = dict(wall_s=b_wall, result=result_b,
+                 loaded_matcher="matcher weights" in proc.stderr,
+                 stores_rewritten=[os.path.getmtime(p) for p in stores]
+                 != mtimes)
+
+    # Run C: 12 views (66 pairs) through the same verb.
+    scene_c = os.path.join(work, "scene_c")
+    out_c = os.path.join(work, "out_c")
+    names_c, _K, _q, _t = write_scene(scene_c, n_views=RECON_SCALE_VIEWS)
+    for k in fused_dsm.launches:
+        fused_dsm.launches[k] = 0
+    got_c, run_c = run_reconstruct(cli.main, scene_c, out_c, "--fused", "on")
+    run_c.update(launches=dict(fused_dsm.launches),
+                 missing_files=written_files(out_c), result=got_c["result"],
+                 coarse=got_c["coarse"], refined=got_c["refined"])
+    pipeline._ENGINE_CACHE.clear()
+    decode = _decode_timing([os.path.join(scene_c, "images", n)
+                             for n in names_c], work)
+
+    n_pairs_c = RECON_SCALE_VIEWS * (RECON_SCALE_VIEWS - 1) // 2
+    n_batches_c = -(-n_pairs_c // RECON_BATCH)
+    report = dict(
+        reconstruct_s=time.time() - t_phase, write_scene_s=write_s,
+        image_backend=backend, native_image_loader=images.native_error()
+        is None, native_error=images.native_error(),
+        run_a=dict(run_a, launches=got["launches"],
+                   n_registered=got["result"]["n_registered"],
+                   n_points=got["result"]["n_points"],
+                   pose_auc=got["result"].get("pose_auc")),
+        match_832px=dict(batch=fused_engine.cfg.batch_size, pairs=len(names)
+                         * (len(names) - 1) // 2, fused_s=fused_s,
+                         dense_s=dense_s, fused_runs=fused_runs,
+                         dense_runs=dense_runs),
+        decode_1040px=decode,
+        run_b=run_b,
+        run_c=dict(views=RECON_SCALE_VIEWS, pairs=n_pairs_c,
+                   stage_times=run_c["stage_times"], wall_s=run_c["wall_s"],
+                   launches=run_c["launches"],
+                   n_registered=got_c["result"].get("n_registered"),
+                   n_points=got_c["result"].get("n_points"),
+                   pose_auc=got_c["result"].get("pose_auc")),
+        got=got, got_c=got_c, jax=JAX_RECONSTRUCT)
+    # The full report, kept also when a gate below fails.
+    with open(os.path.join(work, "reconstruct.json"), "w") as f:
+        json.dump(report, f, indent=1, default=float)
+    _check_reconstruct_gates(got, JAX_RECONSTRUCT)
+    check(not run_b["loaded_matcher"] and not run_b["stores_rewritten"],
+          "run B matched again", run_b)
+    check(result_b["n_registered"] == got["result"]["n_registered"]
+          and result_b["n_points"] == got["result"]["n_points"],
+          "run B differs from run A", result_b, got["result"])
+    check(got_c["result"]["status"] == "ok"
+          and got_c["result"]["refine_iterations_completed"] == 2
+          and not run_c["missing_files"],
+          "run C", got_c["result"], run_c["missing_files"])
+    check(decode["unfilter"] == "native", "C++ unfilter", decode)
+    check(run_c["launches"] == {"dsm_pass1": n_batches_c,
+                                "dsm_pass2": n_batches_c},
+          "run C launches", run_c["launches"])
+    return {k: v for k, v in report.items()
+            if k not in ("got", "got_c", "jax")}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1805,15 +2207,30 @@ def main():
                     or "Performance Loss" in ln]})
     check(hgmma > 0, "no HGMMA instruction: the product is not on the "
           "tensor cores")
+    # The native image loader (g++ with -ljpeg -lpng): whether this machine
+    # has the headers and libraries. The verb reads PNG with data/png.py
+    # either way; without the library a JPEG raises (ROADMAP item 18).
+    # data/png.py's C++ unfilter needs g++ only, and must build.
+    from detectorfreesfm_tpu_torch.data import images, png
+
+    t0 = time.time()
+    native = images._load_native() is not None
+    unfilter = png._load_native() is not None
+    emit({"phase": "build_image_loader", "seconds": time.time() - t0,
+          "native_image_loader": native, "error": images.native_error(),
+          "library": images.library_path().name,
+          "png_unfilter": unfilter, "png_unfilter_error": png.native_error()})
+    check(unfilter, "C++ PNG unfilter did not build", png.native_error())
 
     t0 = time.time()
     ragged = check_kernels(RAGGED_SHAPE, seed=1, timed=False)
     main_k = check_kernels(MAIN_SHAPE, seed=0, timed=True)
+    verb_k = check_kernels(VERB_SHAPE, seed=3, timed=True)
     eth3d = check_kernels(ETH3D_SHAPE, seed=2, timed=True)
     ties = check_ties()
     emit({"phase": "kernels", "seconds": time.time() - t0,
-          "ragged": ragged, "main_shape": main_k, "eth3d_1600px": eth3d,
-          "ties": ties})
+          "ragged": ragged, "main_shape": main_k, "verb_shape": verb_k,
+          "eth3d_1600px": eth3d, "ties": ties})
 
     t0 = time.time()
     params = load_matcher_params(WEIGHTS)
@@ -1833,6 +2250,9 @@ def main():
     sfm = sfm_phase(keypoints, match_indices)
     emit({"phase": "sfm", **sfm})
 
+    recon = reconstruct_phase()
+    emit({"phase": "reconstruct", **recon})
+
     replaces = {
         "dsm_pass1": "detectorfreesfm_tpu/ops/pallas_dsm.py:98 (_pass1_kernel)",
         "dsm_pass2": "detectorfreesfm_tpu/ops/pallas_dsm.py:160 "
@@ -1841,14 +2261,21 @@ def main():
     src = "detectorfreesfm_tpu_torch/csrc/dual_softmax.cu"
     kernels = []
     for kname in ("dsm_pass1", "dsm_pass2"):
-        k = main_k[kname]
+        # Run A's launches are at VERB_SHAPE: its check, time and bound.
+        k = verb_k[kname]
         kernels.append({
             "name": kname, "route": "cuda", "source": src,
             "replaces": replaces[kname],
-            "launches": main_res["launches"][kname],
+            "launches": recon["run_a"]["launches"][kname],
+            "launches_by_path": {
+                "main": main_res["launches"][kname],
+                "reconstruct_a": recon["run_a"]["launches"][kname],
+                "reconstruct_c": recon["run_c"]["launches"][kname]},
+            "shape": verb_k["shape"],
             "max_abs_err": k["max_abs_err"], "ms": k["ms"],
             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
-            "bound_by": k["bound_by"], "library_ms": None})
+            "bound_by": k["bound_by"], "library_ms": None,
+            "ms_at_main_shape": main_k[kname]["ms"]})
     print(smi)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -8,7 +8,11 @@ of the host-side code it needs. Ported so far: LoFTR-class pair matching
 dual-softmax kernels (`ops.fused_dsm`); beneath the mapper, the geometry
 (`core`), the RANSAC, PnP and bundle-adjustment estimators and the track
 builder (`sfm`), and the match and model stores (`data.h5io`,
-`data.colmap_io`, `data.database`, `sfm.reconstruction`).
+`data.colmap_io`, `data.database`, `sfm.reconstruction`); above them the
+incremental mapper (`sfm.mapper`), multiview refinement (`refine.loop`),
+image IO without PIL (`data.images`, `data.png`), pose evaluation
+(`eval.pose_auc`), the scene pipeline (`pipeline.reconstruct_scene`) and
+the `reconstruct` verb (`python -m detectorfreesfm_tpu_torch.cli`).
 
 Entry points take `device=None`, which means "cuda"; they raise when CUDA is
 absent unless the caller asks for `device="cpu"`.

@@ -1,0 +1,339 @@
+"""Command-line entry: reconstruct one scene on the GPU.
+
+Port of the `reconstruct` verb of the JAX package's cli.py, with every
+option of its `add_common` and the same defaults, plus `--device` (default
+cuda; cpu is for tests):
+
+  python -m detectorfreesfm_tpu_torch.cli reconstruct --images DIR --output DIR
+  python -m detectorfreesfm_tpu_torch.cli reconstruct --scene DIR --output DIR
+
+Scene layout (reference tools/parse_data contract): the scene dir holds
+images/ [+ poses/{img}.txt 4x4 w2c] [+ intrins/{img}.txt 3x3 K]. The
+result is one JSON line, with pose AUCs when poses are given. Beyond the
+JAX verb's keys it says how refinement ended (`refine_iterations_completed`,
+`refine_error`); where a fault of the card stopped refinement, the status
+is "refine_failed" and the exit code 1, though the models are written.
+
+`eval-dataset` and the training verbs are not ported yet (ROADMAP items 13
+and 16).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+
+
+def _load_scene_gt(scene_dir: str):
+    poses_dir = os.path.join(scene_dir, "poses")
+    intrin_dir = os.path.join(scene_dir, "intrins")
+    poses = None
+    intrins = None
+    if os.path.isdir(poses_dir):
+        from .pipeline import read_pose_txt
+
+        poses = {}
+        for f in sorted(os.listdir(poses_dir)):
+            if f.endswith(".txt"):
+                name = os.path.splitext(f)[0]
+                poses[name] = read_pose_txt(os.path.join(poses_dir, f))
+    if os.path.isdir(intrin_dir):
+        from .pipeline import read_intrin_txt
+
+        intrins = {}
+        for f in sorted(os.listdir(intrin_dir)):
+            if f.endswith(".txt"):
+                name = os.path.splitext(f)[0]
+                intrins[name] = read_intrin_txt(os.path.join(intrin_dir, f))
+    return poses, intrins
+
+
+def _match_gt_names(gt: dict, image_names) -> dict:
+    """GT files are keyed by stem; remap to actual image filenames."""
+    if gt is None:
+        return None
+    stem = {os.path.splitext(n)[0]: n for n in image_names}
+    out = {}
+    for k, v in gt.items():
+        if k in stem:
+            out[stem[k]] = v
+        elif k in image_names:
+            out[k] = v
+    return out or None
+
+
+def _bundled_weight(name: str):
+    """Path to a bundled checkpoint under <repo>/weights, or None."""
+    p = os.path.join(os.path.dirname(__file__), "..", "weights", name)
+    return os.path.abspath(p) if os.path.exists(p) else None
+
+
+def _run_scene(args) -> dict:
+    from .device import resolve_device
+    from .match.engine import LOFTR_FAMILY
+    from .pipeline import (
+        PipelineConfig,
+        evaluate_scene_poses,
+        list_scene_images,
+        matches_stored,
+        reconstruct_scene,
+    )
+    from .refine.loop import RefineConfig
+    from .sfm.mapper import MapperConfig
+
+    dev = resolve_device(args.device)
+    scene = args.scene or args.images
+    image_dir = args.images or os.path.join(scene, "images")
+    names = list_scene_images(image_dir, args.n_images)
+    poses, intrins = _load_scene_gt(scene) if args.scene else (None, None)
+    poses = _match_gt_names(poses, names)
+    intrins = _match_gt_names(intrins, names)
+
+    refine_kw = {}
+    if getattr(args, "refine_windows", None):
+        refine_kw["windows"] = tuple(
+            int(w) for w in args.refine_windows.split(","))
+    if getattr(args, "refine_thresholds", None):
+        refine_kw["filter_thresholds"] = tuple(
+            float(t) for t in args.refine_thresholds.split(","))
+    if getattr(args, "reregister_every", None):
+        refine_kw["reregister_every"] = args.reregister_every
+    fused = getattr(args, "fused", "auto")
+    if fused == "auto":
+        # The fused kernels never materialise the (L, S) score matrix: the
+        # path for large frames. At <= 832 px the dense matrix fits and
+        # stays the default. Auto picks dense up to 12k coarse tokens
+        # (~880 px) and the kernels above, on the card only.
+        n_tokens = (args.img_resize // 8) ** 2
+        fused = dev.type == "cuda" and n_tokens > 12000
+    else:
+        fused = fused == "on"
+    bs = getattr(args, "match_batch_size", None)
+    if bs is None:
+        bs = 8 if dev.type == "cuda" else 1
+    arch = getattr(args, "matcher_arch", "loftr")
+    try:
+        cfg = PipelineConfig(
+            matcher=arch,
+            img_resize=args.img_resize,
+            match_threshold=args.match_threshold,
+            match_type=getattr(args, "match_type", "coarse_only"),
+            round_matches_ratio=getattr(args, "round_matches_ratio", None),
+            fused_matching=fused,
+            batch_size=bs,
+            n_refine_iters=args.refine_iters,
+            refine=RefineConfig(**refine_kw),
+            triangulation_mode=args.triangulation,
+            pair_mode=args.pair_mode,
+            n_images=args.n_images,
+            redo_matching=args.redo,
+            redo_sfm=args.redo,
+            redo_refine=args.redo,
+            compute_dtype=args.dtype,
+            mapper=MapperConfig(
+                camera_model=getattr(args, "camera_model",
+                                     "pinhole").upper(),
+                # Known GT intrinsics stay fixed in BA; focal refinement
+                # only makes sense when focals were guessed.
+                # --known-intrinsics forces fixed.
+                refine_focal=(intrins is None) and not args.known_intrinsics,
+                min_model_size=args.min_model_size,
+                abs_pose_min_num_inliers=args.min_inliers,
+                min_tri_angle_deg=args.min_tri_angle,
+            ),
+        )
+    except NotImplementedError as e:
+        raise SystemExit(str(e)) from None
+
+    matcher_params = None
+    need_matching = args.redo or not matches_stored(args.output)
+    matcher_ckpt = getattr(args, "matcher_ckpt", None)
+    if need_matching and matcher_ckpt is None:
+        if arch not in LOFTR_FAMILY:
+            raise SystemExit(
+                "--matcher-arch %s needs an explicit --matcher-ckpt "
+                "(bundled defaults are LoFTR-family)." % arch)
+        # A bare `cli reconstruct` must never match with random weights:
+        # resolve the bundled matcher or refuse. Cached-match runs skip
+        # the load entirely.
+        matcher_ckpt = _bundled_weight("demo_matcher_r5_bf16.msgpack")
+        if matcher_ckpt is None:
+            raise SystemExit(
+                "matching needs trained weights: pass --matcher-ckpt "
+                "<ckpt.msgpack> (no bundled default found under weights/)."
+            )
+        print(f"using bundled matcher weights: {matcher_ckpt}",
+              file=sys.stderr)
+    try:
+        engine_cfg = cfg.engine_config()
+    except NotImplementedError as e:
+        raise SystemExit(str(e)) from None
+    if matcher_ckpt:
+        from .utils.checkpoint import load_matcher_params
+
+        # The load template must match the engine's parameters: with
+        # --match-type coarse_fine the checkpoint's fine head is loaded.
+        matcher_params = load_matcher_params(
+            matcher_ckpt, cfg=engine_cfg.matcher_config())
+    refiner_params = None
+    refiner_ckpt = getattr(args, "refiner_ckpt", None)
+    if refiner_ckpt is None and args.refine_iters > 0:
+        # Refinement with random weights only perturbs keypoints: refuse
+        # unless the bundled default checkpoint exists.
+        refiner_ckpt = _bundled_weight("demo_refiner_r4_bf16.msgpack")
+        if refiner_ckpt is None:
+            raise SystemExit(
+                "--refine-iters > 0 needs trained refiner weights: pass "
+                "--refiner-ckpt <ckpt.msgpack> (no bundled default found "
+                "under weights/), or set --refine-iters 0."
+            )
+        print(f"using bundled refiner weights: {refiner_ckpt}",
+              file=sys.stderr)
+    if refiner_ckpt:
+        from .utils.checkpoint import load_refiner_params
+
+        refiner_params = load_refiner_params(refiner_ckpt, device=dev)
+    info: dict = {}
+    rec = reconstruct_scene(
+        image_dir, args.output, cfg,
+        intrinsics=intrins,
+        matcher_params=matcher_params,
+        refiner_params=refiner_params,
+        verbose=args.verbose,
+        device=dev,
+        info=info,
+    )
+    if rec is None:
+        return {"status": "failed"}
+    result = {
+        # A data-dependent refinement failure keeps the last good model,
+        # as the JAX verb does; a fault of the card is not a result.
+        "status": "refine_failed" if info["refine_device_error"] else "ok",
+        "n_registered": len(rec.registered_images),
+        "n_images": len(rec.images),
+        "n_points": len(rec.points),
+        "n_observations": rec.n_observations(),
+        "refine_iterations_completed": info["refine_iterations_completed"],
+        "refine_error": info["refine_error"],
+    }
+    if poses:
+        result["pose_auc"] = evaluate_scene_poses(rec, poses)
+    return result
+
+
+def cmd_reconstruct(args) -> int:
+    result = _run_scene(args)
+    print(json.dumps(result))
+    return 0 if result.get("status") == "ok" else 1
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(prog="detectorfreesfm_tpu_torch")
+    sub = p.add_subparsers(dest="cmd", required=True)
+
+    def add_common(sp):
+        sp.add_argument("--output", required=True)
+        sp.add_argument("--img-resize", type=int, default=832,
+                        dest="img_resize")
+        sp.add_argument("--match-type", default="coarse_fine",
+                        choices=("coarse_only", "coarse_fine"),
+                        dest="match_type",
+                        help="coarse_fine (default) runs the sub-pixel fine "
+                             "stage and rounds matches to a 4px grid (the "
+                             "reference's TexturePoorSfM protocol; needs a "
+                             "checkpoint trained with --fine)")
+        sp.add_argument("--round-matches-ratio", type=int, default=None,
+                        dest="round_matches_ratio",
+                        help="quantize match coords to an N-px grid before "
+                             "keypoint merge (reference round_matches_ratio)")
+        sp.add_argument("--match-batch-size", type=int, default=None,
+                        dest="match_batch_size",
+                        help="pairs per matching step (default: 8 on the "
+                             "GPU, 1 on the CPU)")
+        sp.add_argument("--fused", default="auto",
+                        choices=("auto", "on", "off"),
+                        help="fused dual-softmax kernels (auto: on the GPU "
+                             "above 12000 coarse tokens, i.e. above ~880 px)")
+        sp.add_argument("--match-threshold", type=float, default=0.2,
+                        dest="match_threshold")
+        sp.add_argument("--refine-iters", type=int, default=2,
+                        dest="refine_iters")
+        sp.add_argument("--refine-windows", default=None,
+                        dest="refine_windows",
+                        help="comma list of per-iteration attention windows,"
+                             " e.g. 15,11,7,7")
+        sp.add_argument("--refine-thresholds", default=None,
+                        dest="refine_thresholds",
+                        help="comma list of per-iteration filter thresholds"
+                             " (px), e.g. 6,4,3,2.5")
+        sp.add_argument("--reregister-every", type=int, default=None,
+                        dest="reregister_every",
+                        help="attempt re-registration every N refine iters")
+        sp.add_argument("--triangulation", action="store_true",
+                        help="known-pose triangulation (not ported yet)")
+        sp.add_argument("--pair-mode", default="exhaustive",
+                        dest="pair_mode",
+                        choices=["exhaustive", "sequential"])
+        sp.add_argument("--n-images", type=int, default=None,
+                        dest="n_images")
+        sp.add_argument("--min-model-size", type=int, default=3,
+                        dest="min_model_size")
+        sp.add_argument("--camera-model", default="pinhole",
+                        choices=("pinhole", "simple_pinhole",
+                                 "simple_radial"),
+                        dest="camera_model",
+                        help="camera model for reconstruction; simple_radial"
+                             " estimates a k1 radial coefficient in BA (the"
+                             " reference's ETH3D default)")
+        sp.add_argument("--known-intrinsics", action="store_true",
+                        dest="known_intrinsics")
+        sp.add_argument("--dtype", default="float32",
+                        choices=["float32", "bfloat16"],
+                        help="matcher compute dtype (bfloat16 is not "
+                             "ported yet)")
+        sp.add_argument("--redo", action="store_true")
+        sp.add_argument("--verbose", action="store_true")
+        sp.add_argument("--matcher-ckpt", default=None, dest="matcher_ckpt",
+                        help="trained matcher checkpoint (.msgpack)")
+        sp.add_argument("--matcher-arch", default="loftr",
+                        dest="matcher_arch",
+                        choices=["loftr", "aspan", "matchformer"],
+                        help="matcher architecture family (only loftr is "
+                             "ported)")
+        sp.add_argument("--refiner-ckpt", default=None, dest="refiner_ckpt",
+                        help="trained refiner checkpoint (.msgpack)")
+        sp.add_argument("--min-inliers", type=int, default=30,
+                        dest="min_inliers",
+                        help="PnP registration inlier floor (reference"
+                             " abs_pose_min_num_inliers)")
+        sp.add_argument("--min-tri-angle", type=float, default=1.5,
+                        dest="min_tri_angle",
+                        help="point filter triangulation-angle floor in"
+                             " degrees (COLMAP Mapper.filter_min_tri_angle;"
+                             " lower to 1.0 on small wide-baseline scenes)")
+        sp.add_argument("--device", default="cuda",
+                        help="torch device (default cuda, which must be "
+                             "present; cpu runs the plain versions of the "
+                             "kernels)")
+
+    sr = sub.add_parser("reconstruct", help="reconstruct one scene")
+    sr.add_argument("--images", default=None, help="image directory")
+    sr.add_argument("--scene", default=None,
+                    help="scene dir with images/ [poses/ intrins/]")
+    sr.add_argument("--args-json", default=None, dest="args_json",
+                    help="load the FULL option namespace from a JSON file")
+    add_common(sr)
+    sr.set_defaults(fn=cmd_reconstruct)
+
+    args = p.parse_args(argv)
+    if getattr(args, "args_json", None):
+        with open(args.args_json) as f:
+            for k, v in json.load(f).items():
+                setattr(args, k, v)
+    return args.fn(args)
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -11,7 +11,8 @@ settings on return, so geometry never decides the matcher's precision.
 
 The JAX module's device hopping (batched kernels on the accelerator,
 latency-bound ones on the host) has no counterpart: the port runs geometry
-on the device the caller passes.
+on the device the caller passes. Two helpers the geometry modules share
+live here too: `as_tensor` and `eigh` (batched, chunked for cuSOLVER).
 """
 
 from __future__ import annotations
@@ -47,3 +48,24 @@ def as_tensor(x, device, dtype=None) -> torch.Tensor:
     if isinstance(x, torch.Tensor):
         return x.to(device=device, dtype=dtype or x.dtype)
     return torch.as_tensor(x, dtype=dtype, device=device)
+
+
+# cuSOLVER's batched symmetric eigensolver, as torch 2.11 with CUDA 12.8
+# calls it on an H100, refuses batches of 40 000 or more small matrices
+# (4x4 and 12x12) with CUSOLVER_STATUS_INVALID_VALUE; batches of 16 384
+# run. Each matrix is solved on its own, so chunking changes no result.
+EIGH_MAX_BATCH = 16384
+
+
+def eigh(A: torch.Tensor):
+    """torch.linalg.eigh over any batch: above EIGH_MAX_BATCH matrices it
+    runs in near-equal chunks of at most that many."""
+    n = A.shape[:-2].numel()
+    if n <= EIGH_MAX_BATCH:
+        return torch.linalg.eigh(A)
+    flat = A.reshape(n, *A.shape[-2:])
+    parts = [torch.linalg.eigh(c) for c in
+             flat.tensor_split(-(-n // EIGH_MAX_BATCH))]
+    w = torch.cat([p[0] for p in parts]).reshape(*A.shape[:-1])
+    v = torch.cat([p[1] for p in parts]).reshape(A.shape)
+    return w, v

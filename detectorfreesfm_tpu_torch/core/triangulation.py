@@ -12,7 +12,7 @@ import torch
 
 from ..device import resolve_device
 from .geometry import quat_to_rotmat
-from .precision import as_tensor, geometry_precision
+from .precision import as_tensor, eigh, geometry_precision
 
 
 def projection_matrices(qvec, tvec, K):
@@ -52,7 +52,7 @@ def triangulate_dlt(P, uv, mask=None, eps: float = 1e-12, device=None):
     # Row normalization improves conditioning for large pixel coords.
     A = A / torch.linalg.norm(A, dim=-1, keepdim=True).clamp_min(eps)
     AtA = torch.einsum("...vi,...vj->...ij", A, A)
-    _w, V4 = torch.linalg.eigh(AtA)
+    _w, V4 = eigh(AtA)
     x_h = V4[..., :, 0]  # eigenvector of the smallest eigenvalue
     wd = x_h[..., 3]
     w_safe = torch.where(wd.abs() < eps,

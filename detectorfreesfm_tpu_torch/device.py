@@ -3,7 +3,15 @@ fp32 backend settings of the matcher."""
 
 from __future__ import annotations
 
+import re
+
 import torch
+
+# Messages of the errors that the card or its libraries raise, as opposed
+# to those of the program or its data.
+_DEVICE_ERROR = re.compile(
+    r"CUDA error|out of memory|cusolver|cublas|cudnn|cufft|curand",
+    re.IGNORECASE)
 
 
 def resolve_device(device=None) -> torch.device:
@@ -14,6 +22,15 @@ def resolve_device(device=None) -> torch.device:
         raise RuntimeError(
             "CUDA is not available; pass device='cpu' to run on the CPU")
     return dev
+
+
+def is_device_error(e: BaseException) -> bool:
+    """Whether an exception is a fault of the card or its libraries (a
+    CUDA, cuBLAS, cuSOLVER or cuDNN error, or device memory run out)."""
+    if isinstance(e, torch.cuda.OutOfMemoryError) or type(
+            e).__name__ == "AcceleratorError":
+        return True
+    return isinstance(e, RuntimeError) and bool(_DEVICE_ERROR.search(str(e)))
 
 
 def set_fp32_backends() -> None:

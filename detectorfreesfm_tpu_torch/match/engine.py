@@ -24,16 +24,33 @@ from ..models.loftr import DetectorFreeMatcher, MatcherConfig
 from ..ops.grid_merge import merge_matches_to_keypoints
 
 
+LOFTR_FAMILY = ("loftr", "loftr_official", "detectorfree")
+
+
 @dataclasses.dataclass(frozen=True)
 class EngineConfig:
+    matcher: str = "loftr"         # the LoFTR family only (see __post_init__)
     img_resize: int = 832          # padded square frame (long-side cap)
     df: int = 8                    # divisor for the 1/8 grid
     batch_size: int = 1            # pairs per forward
     match_threshold: float = 0.2
     max_matches: int = 2048
     round_matches_ratio: Optional[int] = None  # quantize coords to N-px grid
+    compute_dtype: str = "float32"  # float32 only (see __post_init__)
     fused_matching: bool = False   # CUDA fused dual-softmax kernels
     fine_enabled: bool = False     # coarse_fine match type
+
+    def __post_init__(self):
+        # The JAX engine's other matchers and its bf16 compute are not
+        # ported: refuse rather than run the fp32 LoFTR in their place.
+        if self.matcher not in LOFTR_FAMILY:
+            raise NotImplementedError(
+                f"matcher {self.matcher!r} is not ported yet (ROADMAP item "
+                f"15); the port runs the LoFTR family {LOFTR_FAMILY}")
+        if self.compute_dtype != "float32":
+            raise NotImplementedError(
+                f"compute_dtype={self.compute_dtype!r} is not ported yet "
+                "(ROADMAP item 12); the port's matcher runs in float32")
 
     def matcher_config(self) -> MatcherConfig:
         return MatcherConfig(

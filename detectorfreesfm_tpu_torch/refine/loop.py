@@ -16,8 +16,10 @@ Port of the JAX package's refine/loop.py, on one device. Per iteration:
 
 A failed iteration restores the model it started from and ends the loop
 (the reference's failure isolation). The failure is not hidden: pass
-`info={}` and it receives `iterations_completed` and `error` (the caught
-exception's repr, or None), with per-iteration counts and times.
+`info={}` and it receives `iterations_completed`, `error` (the caught
+exception's repr, or None) and `device_error` (whether that exception was
+a fault of the card or its libraries, device.is_device_error), with
+per-iteration counts and times.
 
 The refiner runs in float32 with TF32 off for cuBLAS and cuDNN (as the
 matcher), so the card stays comparable with the fp32 JAX reference. Unlike
@@ -32,6 +34,7 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import os
 import time
 from typing import Dict, Optional
 
@@ -40,7 +43,7 @@ import torch
 
 from ..core.geometry import np_quat_to_rotmat
 from ..core.precision import geometry_precision
-from ..device import resolve_device
+from ..device import is_device_error, resolve_device
 from ..models.multiview_matcher import MultiviewRefiner, RefinerConfig
 from ..sfm.mapper import IncrementalMapper, MapperConfig
 from ..sfm.reconstruction import Reconstruction
@@ -64,6 +67,8 @@ class RefineConfig:
     rereg_min_inlier_ratio: float = 0.1
     # Random refiner weights only perturb keypoints; tests opt in.
     allow_random_weights: bool = False
+    save_iters_to: Optional[str] = None  # write model_refined_{i}/ per
+                                         # completed iteration
 
 
 def _farthest_pair(rec: Reconstruction) -> set:
@@ -113,7 +118,8 @@ def refine_reconstruction(
             "RefineConfig(allow_random_weights=True).")
     dev = resolve_device(device)
     info = {} if info is None else info
-    info.update(iterations_completed=0, error=None, iterations=[])
+    info.update(iterations_completed=0, error=None, device_error=False,
+                iterations=[])
 
     image_order = sorted(images_by_id)
     Hmax = max(im.shape[0] for im in images_by_id.values())
@@ -140,9 +146,14 @@ def refine_reconstruction(
             info["iterations"].append(_refine_iteration(
                 rec, images_dev, image_order, params, cfg, mapper, seed,
                 verbose, it, dev))
+            if cfg.save_iters_to:
+                d = os.path.join(cfg.save_iters_to, f"model_refined_{it}")
+                os.makedirs(d, exist_ok=True)
+                rec.write(d)
             info["iterations_completed"] = it + 1
         except Exception as e:  # noqa: BLE001
             info["error"] = repr(e)
+            info["device_error"] = is_device_error(e)
             if verbose:
                 print(f"refine iter {it} failed ({e!r}); keeping previous model")
             img_snap, pt_snap = snapshot

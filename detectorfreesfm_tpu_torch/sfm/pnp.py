@@ -19,7 +19,7 @@ import torch
 from torch.func import jacfwd, vmap
 
 from ..core.geometry import quat_to_rotmat, rotmat_to_quat, so3_exp
-from ..core.precision import as_tensor, geometry_precision
+from ..core.precision import as_tensor, eigh, geometry_precision
 from ..device import resolve_device
 from .twoview import _sample
 
@@ -45,7 +45,7 @@ def _dlt_pose(X, x, w):
     r2 = torch.cat([zeros, Xh, -x[..., 1:2] * Xh], dim=-1)
     A = torch.cat([r1 * w[..., None], r2 * w[..., None]], dim=-2)
     AtA = torch.einsum("...ni,...nj->...ij", A, A)
-    _, vecs = torch.linalg.eigh(AtA)
+    _, vecs = eigh(AtA)
     p = vecs[..., :, 0].reshape(*X.shape[:-2], 3, 4)
     # The true P = s[R|t] (s > 0) has det(M) = s^3 > 0: fix the sign.
     sign = torch.sign(torch.linalg.det(p[..., :3]))

@@ -8,8 +8,9 @@ holds its full keypoint array `xys` with a parallel `point3D_ids` column
 pairs, and the two views are kept in sync (reference sync contract:
 src/dataset/coarse_sfm_refinement_dataset.py:333-341).
 
-Port: a copy of the JAX package's sfm/reconstruction.py (numpy only),
-without `extract_colors`, which decodes images with PIL.
+Port: a copy of the JAX package's sfm/reconstruction.py (numpy only).
+`extract_colors` decodes through data/images.py (no PIL), and unlike the
+JAX method it raises when an image that exists fails to decode.
 """
 
 from __future__ import annotations
@@ -248,3 +249,42 @@ class Reconstruction:
     def write(self, path: str, ext: str = ".bin"):
         cams, images, points = self.to_colmap()
         colmap_io.write_model(cams, images, points, path, ext)
+
+    def extract_colors(self, image_dir: str) -> int:
+        """Fill every 3D point's RGB with the median of the image colors at
+        its track's observations (COLMAP `--Mapper.extract_colors`
+        equivalent). Host-side: each registered image is decoded once,
+        sampled at its claimed keypoints. Returns the number of points
+        colored.
+
+        An image missing from image_dir leaves its samples out, as in the
+        JAX package; a decode failure raises (the JAX method skips it),
+        so that a machine without a decoder cannot write an all-grey
+        model without saying so."""
+        import os
+
+        from ..data.images import sample_colors
+
+        # pid -> list of (r, g, b) samples across its track
+        samples: Dict[int, list] = {}
+        for im in self.images.values():
+            if not im.registered:
+                continue
+            claimed = np.nonzero(im.point3D_ids >= 0)[0]
+            if len(claimed) == 0:
+                continue
+            path = os.path.join(image_dir, im.name)
+            if not os.path.exists(path):
+                continue
+            rgb = sample_colors(path, im.xys[claimed])
+            for kpt, c in zip(claimed, rgb):
+                pid = int(im.point3D_ids[kpt])
+                samples.setdefault(pid, []).append(c)
+        n = 0
+        for pid, cs in samples.items():
+            pt = self.points.get(pid)
+            if pt is None:
+                continue
+            pt["rgb"] = np.median(np.stack(cs), axis=0).astype(np.uint8)
+            n += 1
+        return n

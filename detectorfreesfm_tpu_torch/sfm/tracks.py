@@ -15,18 +15,15 @@ identical semantics. `last_builder` names the one the last call ran.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import subprocess
 import threading
 from pathlib import Path
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
+from ..utils import native
+
 SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "trackbuilder.cpp"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "native"
-GXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
 
 _lock = threading.Lock()
 _native_lib: Optional[ctypes.CDLL] = None
@@ -36,31 +33,18 @@ last_builder: Optional[str] = None
 
 def library_path() -> Path:
     """build/native/libtrackbuilder_<hash of source and flags>.so"""
-    h = hashlib.sha256(SOURCE.read_bytes())
-    h.update(" ".join(GXX_FLAGS).encode())
-    return BUILD_DIR / f"libtrackbuilder_{h.hexdigest()[:16]}.so"
+    return native.library_path(SOURCE)
 
 
 def _load_native() -> Optional[ctypes.CDLL]:
-    """Build (once, temp file + atomic rename) and load the C++ union-find;
-    None if g++ or the load fails (the reason stays in _native_error)."""
+    """Build (once) and load the C++ union-find; None if g++ or the load
+    fails (the reason stays in _native_error)."""
     global _native_lib, _native_error
     with _lock:
         if _native_lib is not None or _native_error is not None:
             return _native_lib
-        so = library_path()
         try:
-            if not so.exists():
-                BUILD_DIR.mkdir(parents=True, exist_ok=True)
-                tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-                proc = subprocess.run(
-                    ["g++", *GXX_FLAGS, "-o", str(tmp), str(SOURCE)],
-                    capture_output=True, text=True, timeout=120)
-                if proc.returncode != 0:
-                    tmp.unlink(missing_ok=True)
-                    raise RuntimeError(f"g++ failed: {proc.stderr}")
-                os.replace(tmp, so)
-            lib = ctypes.CDLL(str(so))
+            lib = native.build(SOURCE)
             lib.uf_build.argtypes = [
                 ctypes.c_int64,
                 ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_int64),
@@ -68,7 +52,7 @@ def _load_native() -> Optional[ctypes.CDLL]:
             ]
             lib.uf_build.restype = None
             _native_lib = lib
-        except (OSError, RuntimeError, subprocess.SubprocessError) as e:
+        except native.BUILD_ERRORS as e:
             _native_error = f"{type(e).__name__}: {e}"
         return _native_lib
 

@@ -256,9 +256,48 @@ loop.refine_reconstruction(
                       max_track_length=4),
     mapper=mp, device="cpu", info=info)
 assert info["iterations_completed"] == 1, info
+# The scene pipeline and the reconstruct verb on a tiny PNG scene from
+# cached matches, as on the GPU machine: no h5py (the stores fall back to
+# npz), no PIL, and the native image loader disabled (PNG through numpy).
+sys.modules["h5py"] = sys.modules["PIL"] = None  # imports of them fail
+from detectorfreesfm_tpu_torch import cli, pipeline
+from detectorfreesfm_tpu_torch.data import images, png
+images._native_error = "disabled for this probe"
+d = tempfile.mkdtemp()
+for out in ("out", "out_cli"):
+    scene = os.path.join(d, "scene")
+    os.makedirs(os.path.join(scene, "images"), exist_ok=True)
+    for n in kps:
+        png.write_png(os.path.join(scene, "images", n + ".png"),
+                      (rng.uniform(size=(240, 320)) * 255).astype(np.uint8))
+    os.makedirs(os.path.join(d, out), exist_ok=True)
+    h5io.save_h5({{n + ".png": k for n, k in kps.items()}},
+                 os.path.join(d, out, "keypoints.h5"))
+    h5io.save_h5({{f"{{a}}.png|{{b}}.png": ids for a in kps for b in kps
+                  if a < b}}, os.path.join(d, out, "matches.h5"))
+rec = pipeline.reconstruct_scene(
+    os.path.join(scene, "images"), os.path.join(d, "out"),
+    pipeline.PipelineConfig(
+        img_resize=320, n_refine_iters=1,
+        mapper=mapper.MapperConfig(abs_pose_min_num_inliers=15),
+        refine=loop.RefineConfig(windows=(7,), chunk_tracks=64,
+                                 max_track_length=4)),
+    intrinsics={{n + ".png": K for n in kps}},
+    refiner_params=load_refiner_params(
+        os.path.join(os.path.dirname({weights!r}),
+                     "demo_refiner_r4_bf16.msgpack"), device="cpu"),
+    device="cpu")
+assert len(rec.registered_images) == 4 and images.last_backend == "png"
+assert os.path.exists(os.path.join(d, "out", "keypoints.h5.npz"))
+assert cli.main(["reconstruct", "--images", os.path.join(scene, "images"),
+                 "--output", os.path.join(d, "out_cli"), "--device", "cpu",
+                 "--refine-iters", "0", "--min-inliers", "15"]) == 0
+import shutil
+shutil.rmtree(d)
 banned = ("jax", "jaxlib", "flax", "msgpack", "h5py", "PIL",
           "detectorfreesfm_tpu")
-bad = sorted(m for m in sys.modules if m.split(".")[0] in banned)
+bad = sorted(m for m, mod in sys.modules.items()
+             if mod is not None and m.split(".")[0] in banned)
 print("FORBIDDEN", bad)
 sys.exit(1 if bad else 0)
 """
@@ -267,9 +306,11 @@ sys.exit(1 if bad else 0)
 def test_port_imports_no_jax_or_missing_packages():
     """In a fresh interpreter (conftest imports jax into this one), the
     port's forward on the CPU, every geometry, store and estimator module,
-    and the mapper and one refinement iteration, run once at a tiny size,
-    pull in none of jax, flax, msgpack, h5py, PIL or the JAX package, and
-    scipy only where merge_tracks needs it."""
+    the mapper and one refinement iteration, and the scene pipeline and
+    the reconstruct verb (on PNG files, with h5py and PIL blocked and the
+    native image loader off), run once at a tiny size, pull in none of
+    jax, flax, msgpack, h5py, PIL or the JAX package, and scipy only where
+    merge_tracks needs it."""
     code = _IMPORT_PROBE.format(repo=REPO, weights=WEIGHTS)
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
                           text=True, timeout=300)

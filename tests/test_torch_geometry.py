@@ -240,6 +240,25 @@ def test_triangulation_equals_jax():
                                        jnp.asarray(mask)), atol=1e-3)
 
 
+def test_triangulation_in_eigh_chunks_equals_one_call(monkeypatch):
+    """Above precision.EIGH_MAX_BATCH matrices the DLT's eigh runs in
+    chunks (cuSOLVER on the card refuses large batches): the same points
+    and flags, bit for bit, as one call."""
+    from detectorfreesfm_tpu_torch.core import precision
+
+    _q, _t_, _K, _X, P, uv, mask = _tri_problem(0)
+    whole = TT.triangulate_dlt(P, uv, mask, device="cpu")
+    monkeypatch.setattr(precision, "EIGH_MAX_BATCH", 7)
+    assert len(uv) > 7
+    chunked = TT.triangulate_dlt(P, uv, mask, device="cpu")
+    for a, b in zip(chunked, whole):
+        assert torch.equal(a, b)
+    A = torch.randn(3, 10, 12, 12, generator=torch.Generator().manual_seed(0))
+    A = A @ A.transpose(-1, -2)
+    for a, b in zip(precision.eigh(A), torch.linalg.eigh(A)):
+        assert torch.equal(a, b)
+
+
 def test_entry_points_set_fp32_geometry_precision(monkeypatch):
     """Every geometry entry point turns TF32 off itself (core/precision),
     whatever ran before it, and gives the caller's settings back on

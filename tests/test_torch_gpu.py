@@ -460,3 +460,98 @@ def test_mapper_and_refinement_run_on_cuda_by_default():
                      max_track_length=4), mapper=mapper, info=info)
     assert info["iterations_completed"] == 1 and info["error"] is None
     assert torch.cuda.max_memory_allocated() > 0
+
+
+def _cached_match_scene(root, n_views=5, n_pts=250, seed=31):
+    """A scene directory of PNG files with cached match stores, written by
+    the port alone (no PIL, no JAX): tests/test_pipeline.py's kind of
+    scene, projections of random points into cameras on an arc."""
+    from detectorfreesfm_tpu_torch.data import png
+    from detectorfreesfm_tpu_torch.data.h5io import save_h5
+
+    rng = np.random.default_rng(seed)
+    pts = rng.uniform(-1.5, 1.5, (n_pts, 3)) + [0, 0, 6]
+    K = np.array([[500.0, 0, 320], [0, 500.0, 240], [0, 0, 1]])
+    kps = {}
+    for i in range(n_views):
+        a = (i - (n_views - 1) / 2) * 0.2
+        R = np.array([[np.cos(a), 0, np.sin(a)], [0, 1, 0],
+                      [-np.sin(a), 0, np.cos(a)]])
+        Xc = (pts - [6 * np.sin(a), 0, 6 - 6 * np.cos(a)]) @ R.T
+        uv = ((Xc / Xc[:, 2:]) @ K.T)[:, :2]
+        kps[f"im{i:02d}.png"] = uv + rng.normal(0, 0.4, uv.shape)
+    image_dir = os.path.join(root, "images")
+    os.makedirs(image_dir)
+    for n in kps:
+        png.write_png(os.path.join(image_dir, n),
+                      rng.integers(0, 256, (480, 640), dtype=np.uint8))
+    ids = np.stack([np.arange(n_pts)] * 2, 1).astype(np.int32)
+    stores = {}
+    for out in ("cpu", "cuda"):
+        d = os.path.join(root, out)
+        os.makedirs(d)
+        save_h5(kps, os.path.join(d, "keypoints.h5"))
+        save_h5({f"{a}|{b}": ids for a in kps for b in kps if a < b},
+                os.path.join(d, "matches.h5"))
+        stores[out] = d
+    return image_dir, stores, {n: K for n in kps}
+
+
+@pytest.mark.cuda
+def test_reconstruct_scene_on_the_card_equals_the_cpu(tmp_path):
+    """The scene pipeline from cached matches (mapper, one refinement
+    iteration with the r4 refiner, colours, exports) on the card and on
+    the CPU: the same registered set, points within 2%."""
+    _needs_cuda()
+    from detectorfreesfm_tpu_torch import pipeline
+    from detectorfreesfm_tpu_torch.refine.loop import RefineConfig
+    from detectorfreesfm_tpu_torch.sfm.mapper import MapperConfig
+    from detectorfreesfm_tpu_torch.utils.checkpoint import (
+        load_refiner_params,
+    )
+
+    image_dir, stores, intrins = _cached_match_scene(str(tmp_path))
+    cfg = pipeline.PipelineConfig(
+        img_resize=640, n_refine_iters=1,
+        mapper=MapperConfig(abs_pose_min_num_inliers=15),
+        refine=RefineConfig(windows=(9,), chunk_tracks=128,
+                            filter_thresholds=(8.0,)))
+    weights = os.path.join(REPO, "weights", "demo_refiner_r4_bf16.msgpack")
+    recs = {dev: pipeline.reconstruct_scene(
+        image_dir, stores[dev], cfg, intrinsics=intrins, device=dev,
+        refiner_params=load_refiner_params(weights, device=dev))
+        for dev in ("cpu", "cuda")}
+    reg = {dev: sorted(r.images[i].name for i in r.registered_images)
+           for dev, r in recs.items()}
+    assert reg["cuda"] == reg["cpu"] and len(reg["cpu"]) == 5
+    n = {dev: len(r.points) for dev, r in recs.items()}
+    assert abs(n["cuda"] - n["cpu"]) <= 0.02 * n["cpu"], n
+    for dev in recs:
+        assert os.path.exists(os.path.join(stores[dev], "model_refined_0",
+                                           "images.bin"))
+
+
+@pytest.mark.cuda
+def test_triangulation_of_a_large_batch_on_the_card():
+    """65 536 DLT problems in one call (cuSOLVER's batched eigensolver
+    refuses batches of 40 000 and more; precision.eigh chunks them): the
+    points equal the CPU's within 1e-3 relative."""
+    _needs_cuda()
+    from detectorfreesfm_tpu_torch.core.triangulation import triangulate_dlt
+
+    rng = np.random.default_rng(5)
+    n, V = 65536, 4
+    X = rng.normal(size=(n, 3)) + [0, 0, 6]
+    P = np.zeros((n, V, 3, 4), np.float32)
+    uv = np.zeros((n, V, 2), np.float32)
+    for v in range(V):
+        Pv = np.concatenate([np.eye(3), [[v * 0.5], [0], [0]]], 1)
+        P[:, v] = np.diag([500.0, 500, 1]) @ Pv
+        h = np.einsum("ij,nj->ni", P[0, v], np.c_[X, np.ones(n)])
+        uv[:, v] = h[:, :2] / h[:, 2:]
+    mask = np.ones((n, V), bool)
+    Xg, okg = triangulate_dlt(P, uv, mask, device="cuda")
+    Xc, okc = triangulate_dlt(P, uv, mask, device="cpu")
+    assert bool(okg.all()) and torch.equal(okg.cpu(), okc)
+    np.testing.assert_allclose(Xg.cpu().numpy(), Xc.numpy(), rtol=1e-3,
+                               atol=1e-3)

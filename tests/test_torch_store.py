@@ -182,7 +182,8 @@ def _reconstruction(C, R, rng):
 
 def test_reconstruction_equals_jax(tmp_path):
     """add/merge/remove points, deregister, reprojection errors (SIMPLE_
-    RADIAL), to/from COLMAP and write: the same state and the same files."""
+    RADIAL), to/from COLMAP and write: the same state and the same files;
+    extract_colors: the same colours, and a decode error raises."""
     jr = _reconstruction(JC, JR, np.random.default_rng(2))
     tr = _reconstruction(TC, TR, np.random.default_rng(2))
     assert tr.registered_images == jr.registered_images
@@ -205,7 +206,26 @@ def test_reconstruction_equals_jax(tmp_path):
     back = TR.Reconstruction.from_colmap(*TC.read_model(str(tmp_path / "j")))
     assert back.n_observations() == jr.n_observations()
     assert back._next_pid == max(jr.points) + 1
-    assert not hasattr(TR.Reconstruction, "extract_colors")
+    # extract_colors: JPEG images (im3.jpg left out: its file is
+    # missing, which both skip) give the same colour on every point.
+    from PIL import Image
+
+    img_dir = tmp_path / "images"
+    img_dir.mkdir()
+    rng = np.random.default_rng(5)
+    for i in (1, 2, 4):
+        Image.fromarray(rng.integers(0, 256, (480, 640, 3), np.uint8)).save(
+            img_dir / f"im{i}.jpg", quality=90)
+    assert tr.extract_colors(str(img_dir)) == jr.extract_colors(
+        str(img_dir)) > 0
+    for pid in jr.points:
+        np.testing.assert_array_equal(tr.points[pid]["rgb"],
+                                      jr.points[pid]["rgb"])
+    # A file that exists but does not decode: JAX skips it, the port raises.
+    (img_dir / "im2.jpg").write_bytes(b"\xff\xd8 not a jpeg")
+    jr.extract_colors(str(img_dir))
+    with pytest.raises((RuntimeError, ValueError), match="im2.jpg"):
+        tr.extract_colors(str(img_dir))
 
 
 def test_model_select_equals_jax(tmp_path):
