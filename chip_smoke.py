@@ -42,9 +42,21 @@ standard library, numpy, torch and the port. Phases, one JSON line each:
            to the JAX package's own CLI on the same files (recorded with
            `python tests/test_torch_pipeline.py --record`); run B, the
            same command in a subprocess, resumes without matching; run C,
-           12 views (66 pairs), must complete; fused against dense
+           8 views (28 pairs), must complete; fused against dense
            matching at 832 px; full report in
            build/smoke_reconstruct/reconstruct.json
+  train    the four training verbs through the port's cli.main on two
+           rendered 832 px scenes written to disk (6 views, tuples of 4):
+           `train-matcher --fine` (r5 warm start), `train` (r4 warm start,
+           200 tracks, window 15), `train-matcher-selfsup` (r5, 416 px,
+           batch 4) and `train-refiner-selfsup` (fresh init, 256 px), 3
+           steps each; every step's loss and gradient norm held to the
+           JAX package's on the same files (JAX_TRAIN, recorded with
+           `python tests/test_torch_train.py --record`), checkpoints read
+           back strictly, the fused kernels launched 0 times while
+           training, the trained matcher served through them; step times,
+           peak memory and a torch.profiler breakdown of one steady
+           train-matcher step; full report in build/smoke_train/train.json
 
 The build phase also builds the native image loader (g++, -ljpeg -lpng)
 and says whether it linked. Any failed check raises (non-zero exit). The
@@ -1570,6 +1582,41 @@ JAX_SFM = {'a_known': {'mean_reproj_px': 0.6774333983607213,
                        'view_3': 0.058822894543592144}}}
 
 
+# The JAX package on the CPU from the train phase's own files, weights
+# and seeds (`JAX_PLATFORMS=cpu python tests/test_torch_train.py
+# --record`, 5.3 min there): per verb the step-0 loss and global gradient
+# norm and every step's loss (the bootstraps' later losses as JAX prints
+# them, to 4 decimals). `train` runs JAX's model and optimizer on the
+# port's labels (train/supervision.py: JAX's own but for the reference
+# inputs' rounding ties; `loss0_jax_labels` is JAX's own labels' loss).
+JAX_TRAIN = {'matcher_selfsup': {'grad_norm0': 1.5227237939834595,
+                                 'loss0': 2.1278305053710938,
+                                 'losses': [2.1278, 2.3927, 2.0509]},
+             'refiner_selfsup': {'grad_norm0': 2.3808767795562744,
+                                 'loss0': 2.5211849212646484,
+                                 'losses': [2.5212, 2.6566, 2.506]},
+             'train': {'grad_norm0': 16.52646827697754,
+                       'grad_norms': [16.52646827697754,
+                                      13.49618148803711,
+                                      13.583890914916992],
+                       'loss0': 0.7565832734107971,
+                       'loss0_jax_labels': 0.8215869665145874,
+                       'losses': [0.7565832734107971,
+                                  0.8333027958869934,
+                                  0.8748477101325989],
+                       'mask_agreement': 1.0,
+                       'ref_inputs_on_other_tie': 172},
+             'train_matcher': {'grad_norm0': 2.284970283508301,
+                               'grad_norms': [2.284970283508301,
+                                              5.799782752990723,
+                                              1.9358047246932983],
+                               'loss0': 1.0796880722045898,
+                               'losses': [1.0796880722045898,
+                                          1.2360594272613525,
+                                          1.0619219541549683],
+                               'matched_rows': 9603}}
+
+
 def demo_mapper_kwargs(kps, side):
     """MapperConfig of tests/run_demo832.py (side 832) and
     tests/test_demo_golden.py (side 416): thresholds scaled by the mean
@@ -1794,7 +1841,8 @@ def sfm_summary(report):
 
 RECON_SIZE = 1040          # rendered larger than the 832 px network frame
 RECON_VIEWS = 4
-RECON_SCALE_VIEWS = 12     # run C: 66 pairs (cut from 16, PERF.md §4)
+RECON_SCALE_VIEWS = 8      # run C: 28 pairs (cut from 16, then 12,
+                           # to make room for the train phase, PERF.md §4)
 RECON_BATCH = 8            # the verb's batch default on the card
 STAGE_KEYS = ("match", "coarse_sfm", "io", "refine")
 
@@ -2054,7 +2102,7 @@ def _decode_timing(paths, work):
 def reconstruct_phase():
     """The `reconstruct` verb on the card, as a user calls it, on a scene
     written to disk: run A (gated against JAX_RECONSTRUCT), run B (a
-    resuming rerun in a subprocess) and run C (12 views, report-only
+    resuming rerun in a subprocess) and run C (8 views, report-only
     apart from completion); fused against dense matching at 832 px, and
     image decoding serial against the verb's 8 threads."""
     import dataclasses
@@ -2114,7 +2162,7 @@ def reconstruct_phase():
                  stores_rewritten=[os.path.getmtime(p) for p in stores]
                  != mtimes)
 
-    # Run C: 12 views (66 pairs) through the same verb.
+    # Run C: 8 views (28 pairs) through the same verb.
     scene_c = os.path.join(work, "scene_c")
     out_c = os.path.join(work, "out_c")
     names_c, _K, _q, _t = write_scene(scene_c, n_views=RECON_SCALE_VIEWS)
@@ -2170,6 +2218,279 @@ def reconstruct_phase():
           "run C launches", run_c["launches"])
     return {k: v for k, v in report.items()
             if k not in ("got", "got_c", "jax")}
+
+
+# ---------------------------------------------------------------------------
+# The train phase: the four training verbs through the port's cli.main on
+# two rendered scenes written to disk, each step's loss and gradient norm
+# held to the JAX package's on the same files (JAX_TRAIN, recorded on the
+# CPU with `JAX_PLATFORMS=cpu python tests/test_torch_train.py --record`).
+# ---------------------------------------------------------------------------
+
+TRAIN_SCENE = dict(size=832, n_views=6, tuple_size=4, n_tuples=8)
+TRAIN_STEPS = 3
+REFINER_W = os.path.join(REPO, "weights", "demo_refiner_r4_bf16.msgpack")
+# Relative tolerances: step 0 where both packages start from the same
+# parameters, later steps after Adam steps, and the fresh-init refiner
+# bootstrap (different draws). Tightened from 1e-3 / 1e-3 / 2e-2 after the
+# first card run (PERF.md: step-0 losses within 5e-6, gradient norms
+# within 4.2e-4, later losses within 4e-5).
+TRAIN_TOL = dict(loss0=1e-4, grad_norm0=1e-3, later=2e-3, fresh=0.25)
+
+
+
+def write_train_data(root):
+    """Two rendered scenes (seeds 0 and 1) in the trainers' index layout
+    under root/data; returns (data dir, scene 0's image dir)."""
+    from detectorfreesfm_tpu_torch.data.synthetic import (SyntheticConfig,
+                                                          write_scene)
+
+    data = os.path.join(root, "data")
+    for seed in (0, 1):
+        write_scene(data, f"scene{seed}", seed, SyntheticConfig(**TRAIN_SCENE))
+    return data, os.path.join(data, "scene0", "images")
+
+
+def train_argv(data, images, out):
+    """verb name -> the command line of the phase (and of the record)."""
+    return {
+        "train_matcher": [
+            "train-matcher", "--data", data, "--output",
+            os.path.join(out, "matcher"), "--fine", "--img-resize", "832",
+            "--init-ckpt", WEIGHTS, "--batch-size", "1", "--max-steps",
+            str(TRAIN_STEPS), "--log-every", "1"],
+        "train": [
+            "train", "--data", data, "--output", os.path.join(out, "refiner"),
+            "--img-resize", "832", "--window", "15", "--n-tracks", "200",
+            "--init-ckpt", REFINER_W, "--batch-size", "1", "--max-steps",
+            str(TRAIN_STEPS), "--log-every", "1"],
+        "matcher_selfsup": [
+            "train-matcher-selfsup", "--images", images, "--output",
+            os.path.join(out, "matcher_selfsup.msgpack"), "--init-ckpt",
+            WEIGHTS, "--steps", str(TRAIN_STEPS), "--log-every", "1"],
+        "refiner_selfsup": [
+            "train-refiner-selfsup", "--images", images, "--output",
+            os.path.join(out, "refiner_selfsup.msgpack"), "--steps",
+            str(TRAIN_STEPS), "--log-every", "1"],
+    }
+
+
+def train_checkpoint(name, out):
+    return {"train_matcher": os.path.join(out, "matcher",
+                                          "matcher_ep0.msgpack"),
+            "train": os.path.join(out, "refiner", "ckpt_ep0.msgpack"),
+            "matcher_selfsup": os.path.join(out, "matcher_selfsup.msgpack"),
+            "refiner_selfsup": os.path.join(out, "refiner_selfsup.msgpack"),
+            }[name]
+
+
+def read_back(name, path):
+    """The checkpoint through the port's loaders, strictly: every leaf the
+    trainer's tree has, and nothing else."""
+    from detectorfreesfm_tpu_torch.models.loftr import (DetectorFreeMatcher,
+                                                        MatcherConfig)
+    from detectorfreesfm_tpu_torch.utils import checkpoint as ck
+
+    if name in ("train", "refiner_selfsup"):
+        return ck.load_refiner_params(path, device="cuda")
+    state = ck.flax_variables_to_state_dict(ck.read_variables(path))
+    with torch.device("meta"):
+        want = DetectorFreeMatcher(MatcherConfig()).state_dict()
+    if name == "matcher_selfsup":
+        want = {k: v for k, v in want.items()
+                if not k.startswith(ck.FINE_PREFIX)}
+    ck.match_state_dict(state, want)
+    return state
+
+
+def profile_train_step(data):
+    """torch.profiler of one steady `train-matcher --fine` step (r5 warm
+    start, the verb's first batch): forward/backward/optimizer split and
+    the top kernels. Returns the report and the trainer's params."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from detectorfreesfm_tpu_torch import cli
+    from detectorfreesfm_tpu_torch.models.loftr import MatcherConfig
+    from detectorfreesfm_tpu_torch.train.matcher_trainer import (
+        MatcherTrainConfig, MatcherTrainer, tuple_to_pair_batch)
+    from detectorfreesfm_tpu_torch.train.optimizers import OptimConfig
+    from detectorfreesfm_tpu_torch.train.trainer import value_and_grad
+
+    args = cli.argparse.Namespace(data=data, img_resize=832,
+                                  samples_per_scene=200)
+    datasets, sampler, _w = cli._datasets(args)
+    s, t = sampler.epoch(0)[0]
+    batch = tuple_to_pair_batch([datasets[s][t]])
+    tr = MatcherTrainer(MatcherTrainConfig(
+        matcher=MatcherConfig(fine_enabled=True),
+        optim=OptimConfig(true_batch_size=1)), device="cuda")
+    state = tr.init_state(batch)
+    state = state._replace(params=tr.load_params(WEIGHTS, state.params))
+    for _ in range(2):
+        state, _loss = tr.train_step(state, batch)
+    torch.cuda.synchronize()
+    gt, uv1 = tr.supervise(batch)
+    im0 = torch.as_tensor(batch["image0"], device="cuda")
+    im1 = torch.as_tensor(batch["image1"], device="cuda")
+    t0 = time.time()
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            with record_function("labels"):
+                gt, uv1 = tr.supervise(batch)
+            with record_function("forward_backward"):
+                loss, grads = value_and_grad(
+                    tr.model, state.params, lambda apply: tr.loss_one(
+                        apply, im0[0], im1[0], gt[0], uv1[0]))
+            with record_function("optimizer"):
+                state.opt_state.step(state.params, grads)
+            torch.cuda.synchronize()
+    except RuntimeError as e:
+        return {"not_measured": repr(e)}
+    wall_ms = (time.time() - t0) * 1e3
+    events = prof.key_averages()
+    names = ("labels", "forward_backward", "optimizer")
+    kernels = [e for e in events
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.key not in names]
+    dev_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:15]
+    ranges = {e.key: dict(cpu_ms=e.cpu_time_total / 1e3,
+                          device_ms=e.device_time_total / 1e3)
+              for e in events if e.key in names
+              and e.device_type == torch.autograd.DeviceType.CPU}
+    bwd = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
+           and "Backward" in e.key]
+    return dict(wall_ms=wall_ms, device_ms=dev_ms, ranges=ranges,
+                loss=float(loss), backward_named_ms=sum(
+                    e.self_device_time_total for e in bwd) / 1e3,
+                top=[(e.key[:90], e.count, e.self_device_time_total / 1e3)
+                     for e in top])
+
+
+def serve_trained_matcher(path):
+    """The trained matcher checkpoint through the engine with the fused
+    kernels on main's 6 pairs, held to the dense path with the same
+    weights: launches as on main, IoU >= 0.95."""
+    from detectorfreesfm_tpu_torch.data.images import from_array
+    from detectorfreesfm_tpu_torch.data.synthetic import (SyntheticConfig,
+                                                          generate_scene)
+    from detectorfreesfm_tpu_torch.match.engine import (EngineConfig,
+                                                        PairMatchingEngine)
+    from detectorfreesfm_tpu_torch.match.pairs import exhaustive_pairs
+    from detectorfreesfm_tpu_torch.ops import fused_dsm
+    from detectorfreesfm_tpu_torch.utils.checkpoint import load_matcher_params
+
+    imgs, _d, _K, _q, _t = generate_scene(0, SyntheticConfig(size=832,
+                                                             n_views=4))
+    names = [f"view_{i}" for i in range(len(imgs))]
+    images = {n: from_array(imgs[i]) for i, n in enumerate(names)}
+    pairs = exhaustive_pairs(names)
+    params = load_matcher_params(path)
+
+    def engine(fused):
+        return PairMatchingEngine(EngineConfig(
+            img_resize=832, fine_enabled=True, round_matches_ratio=4,
+            fused_matching=fused, batch_size=2), params)
+
+    for k in fused_dsm.launches:
+        fused_dsm.launches[k] = 0
+    fused = engine(True).match_pairs(pairs, images)
+    launches = dict(fused_dsm.launches)
+    dense = engine(False).match_pairs(pairs, images)
+    ious = {f"{a}-{b}": iou(row_set(fused[(a, b)]), row_set(dense[(a, b)]))
+            for a, b in pairs}
+    return dict(launches=launches, iou_fused_vs_dense=ious,
+                valid=sum(len(m["conf"]) for m in fused.values()))
+
+
+def _rel(a, b):
+    return abs(a - b) / max(abs(b), 1e-30)
+
+
+def _check_train_gates(got, ref):
+    for name in ("train_matcher", "train", "matcher_selfsup"):
+        g, r = got[name], ref[name]
+        check(_rel(g["losses"][0], r["loss0"]) <= TRAIN_TOL["loss0"],
+              name, "step-0 loss", g["losses"][0], r["loss0"])
+        check(_rel(g["grad_norms"][0], r["grad_norm0"])
+              <= TRAIN_TOL["grad_norm0"], name, "step-0 gradient norm",
+              g["grad_norms"][0], r["grad_norm0"])
+        for i in range(1, TRAIN_STEPS):
+            check(_rel(g["losses"][i], r["losses"][i]) <= TRAIN_TOL["later"],
+                  name, f"step-{i} loss", g["losses"][i], r["losses"][i])
+    g, r = got["refiner_selfsup"], ref["refiner_selfsup"]
+    check(all(np.isfinite(g["losses"])), "refiner_selfsup losses",
+          g["losses"])
+    check(_rel(g["losses"][0], r["loss0"]) <= TRAIN_TOL["fresh"],
+          "refiner_selfsup step-0 loss", g["losses"][0], r["loss0"])
+
+
+def train_phase():
+    """The four training verbs on the card (see the section comment);
+    full report in build/smoke_train/train.json."""
+    import shutil
+
+    from detectorfreesfm_tpu_torch import cli
+    from detectorfreesfm_tpu_torch.ops import fused_dsm
+
+    t_phase = time.time()
+    work = os.path.join(REPO, "build", "smoke_train")
+    shutil.rmtree(work, ignore_errors=True)
+    t0 = time.time()
+    data, images = write_train_data(work)
+    write_s = time.time() - t0
+    out = os.path.join(work, "out")
+    report = dict(write_data_s=write_s, verbs={})
+    for name, argv in train_argv(data, images, out).items():
+        log = os.path.join(work, f"{name}.jsonl")
+        for k in fused_dsm.launches:
+            fused_dsm.launches[k] = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        rc = cli.main(argv + ["--log-json", log])
+        wall = time.time() - t0
+        check(rc == 0, name, "exit code", rc)
+        with open(log) as f:
+            steps = [json.loads(ln) for ln in f]
+        check(len(steps) == TRAIN_STEPS, name, "steps", len(steps))
+        secs = [s["seconds"] for s in steps]
+        path = train_checkpoint(name, out)
+        n_leaves = len(read_back(name, path))
+        report["verbs"][name] = dict(
+            argv=argv, wall_s=wall, first_step_s=secs[0],
+            steady_median_s=float(np.median(secs[1:])),
+            max_memory_allocated_gib=torch.cuda.max_memory_allocated()
+            / 2 ** 30, losses=[s["loss"] for s in steps],
+            grad_norms=[s["grad_norm"] for s in steps],
+            launches=dict(fused_dsm.launches), checkpoint_leaves=n_leaves,
+            jax=JAX_TRAIN[name])
+    t0 = time.time()
+    report["profile_train_matcher_step"] = profile_train_step(data)
+    report["profile_s"] = time.time() - t0
+    t0 = time.time()
+    report["serve"] = serve_trained_matcher(
+        train_checkpoint("train_matcher", out))
+    report["serve_s"] = time.time() - t0
+    report["train_s"] = time.time() - t_phase
+    with open(os.path.join(work, "train.json"), "w") as f:
+        json.dump(report, f, indent=1, default=float)
+    got = report["verbs"]
+    for name, g in got.items():
+        check(g["launches"] == {"dsm_pass1": 0, "dsm_pass2": 0},
+              name, "fused kernels launched while training", g["launches"])
+    _check_train_gates(got, JAX_TRAIN)
+    serve = report["serve"]
+    check(serve["launches"] == {"dsm_pass1": 3, "dsm_pass2": 3},
+          "trained matcher's launches", serve["launches"])
+    check(min(serve["iou_fused_vs_dense"].values()) >= 0.95,
+          "trained matcher fused vs dense IoU", serve["iou_fused_vs_dense"])
+    summary = {k: v for k, v in report.items() if k != "verbs"}
+    summary["verbs"] = {n: {k: v for k, v in g.items()
+                            if k not in ("argv", "jax")}
+                        for n, g in got.items()}
+    return summary
 
 
 def main():
@@ -2253,6 +2574,9 @@ def main():
     recon = reconstruct_phase()
     emit({"phase": "reconstruct", **recon})
 
+    train = train_phase()
+    emit({"phase": "train", **train})
+
     replaces = {
         "dsm_pass1": "detectorfreesfm_tpu/ops/pallas_dsm.py:98 (_pass1_kernel)",
         "dsm_pass2": "detectorfreesfm_tpu/ops/pallas_dsm.py:160 "
@@ -2270,7 +2594,10 @@ def main():
             "launches_by_path": {
                 "main": main_res["launches"][kname],
                 "reconstruct_a": recon["run_a"]["launches"][kname],
-                "reconstruct_c": recon["run_c"]["launches"][kname]},
+                "reconstruct_c": recon["run_c"]["launches"][kname],
+                **{f"train_{n}": g["launches"][kname]
+                   for n, g in train["verbs"].items()},
+                "train_serve": train["serve"]["launches"][kname]},
             "shape": verb_k["shape"],
             "max_abs_err": k["max_abs_err"], "ms": k["ms"],
             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],

@@ -1,11 +1,22 @@
-"""Command-line entry: reconstruct one scene on the GPU.
+"""Command-line entry: reconstruct one scene, or train, on the GPU.
 
-Port of the `reconstruct` verb of the JAX package's cli.py, with every
-option of its `add_common` and the same defaults, plus `--device` (default
-cuda; cpu is for tests):
+Port of the `reconstruct` verb and the four training verbs of the JAX
+package's cli.py, with every option of its parsers and the same defaults,
+plus `--device` (default cuda; cpu is for tests) and, on the training
+verbs, `--log-json PATH` (one JSON line per step: loss, gradient norm,
+seconds):
 
   python -m detectorfreesfm_tpu_torch.cli reconstruct --images DIR --output DIR
   python -m detectorfreesfm_tpu_torch.cli reconstruct --scene DIR --output DIR
+  python -m detectorfreesfm_tpu_torch.cli train --data DIR --output DIR
+  python -m detectorfreesfm_tpu_torch.cli train-matcher --data DIR --output DIR [--fine]
+  python -m detectorfreesfm_tpu_torch.cli train-matcher-selfsup --images DIR --output CKPT
+  python -m detectorfreesfm_tpu_torch.cli train-refiner-selfsup --images DIR --output CKPT
+
+`train` and `train-matcher` read MegaDepth-style scene indexes (*.npz, see
+data/megadepth.py) and write one checkpoint per epoch; the bootstraps
+train on a folder of images. Checkpoints are flax msgpack files that
+both packages' loaders read.
 
 Scene layout (reference tools/parse_data contract): the scene dir holds
 images/ [+ poses/{img}.txt 4x4 w2c] [+ intrins/{img}.txt 3x3 K]. The
@@ -14,8 +25,7 @@ JAX verb's keys it says how refinement ended (`refine_iterations_completed`,
 `refine_error`); where a fault of the card stopped refinement, the status
 is "refine_failed" and the exit code 1, though the models are written.
 
-`eval-dataset` and the training verbs are not ported yet (ROADMAP items 13
-and 16).
+`eval-dataset` is not ported yet (ROADMAP item 13).
 """
 
 from __future__ import annotations
@@ -229,6 +239,159 @@ def cmd_reconstruct(args) -> int:
     return 0 if result.get("status") == "ok" else 1
 
 
+def _datasets(args):
+    """The scene indexes of --data, sharded over the processes of an
+    initialised torch.distributed group (one process otherwise)."""
+    import glob
+
+    from .data.megadepth import (MegaDepthTupleDataset, SceneBalancedSampler,
+                                 load_scene_index, shard_scenes)
+
+    scene_files = sorted(glob.glob(os.path.join(args.data, "*.npz")))
+    if not scene_files:
+        return None, None, 1
+    rank, world = 0, 1
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        rank, world = dist.get_rank(), dist.get_world_size()
+    scene_files = shard_scenes(scene_files, rank, world)
+    datasets = [MegaDepthTupleDataset(load_scene_index(p),
+                                      img_size=args.img_resize)
+                for p in scene_files]
+    sampler = SceneBalancedSampler([len(d) for d in datasets],
+                                   n_per_scene=args.samples_per_scene)
+    return datasets, sampler, world
+
+
+def _train_loop(args, trainer, datasets, sampler, make_batch, step_args,
+                ckpt_name):
+    """The JAX verbs' epoch loop: batches in sampler order, --init-ckpt
+    after the first batch's init, a checkpoint per epoch, --max-steps."""
+    import time
+
+    from .train.trainer import StepLog
+
+    log = StepLog(args.log_json)
+    state = None
+    step = 0
+    max_steps = args.max_steps
+    ep0 = args.start_epoch
+    for epoch in range(ep0, ep0 + args.epochs):
+        ids = sampler.epoch(epoch).tolist()
+        bs = max(1, args.batch_size)
+        for start in range(0, len(ids) - bs + 1, bs):
+            batch = make_batch([datasets[s][t]
+                                for s, t in ids[start:start + bs]])
+            if state is None:
+                state = trainer.init_state(batch)
+                if args.init_ckpt:
+                    state = state._replace(params=trainer.load_params(
+                        args.init_ckpt, state.params))
+            t0 = time.time()
+            state, loss = trainer.train_step(state, batch, *step_args(step))
+            log(step, float(loss), trainer.history[-1]["grad_norm"], t0)
+            step += 1
+            if step % args.log_every == 0:
+                print(f"epoch {epoch} step {step} loss {float(loss):.5f}",
+                      flush=True)
+            if max_steps and step >= max_steps:
+                break
+        if state is not None:
+            trainer.save_checkpoint(state, os.path.join(
+                args.output, ckpt_name.format(epoch=epoch)))
+        if max_steps and step >= max_steps:
+            break
+    return 0
+
+
+def cmd_train(args) -> int:
+    """Train the multiview refiner on MegaDepth-style scene indexes."""
+    from .data.megadepth import collate
+    from .models.multiview_matcher import RefinerConfig
+    from .train.optimizers import OptimConfig
+    from .train.trainer import TrainConfig, Trainer
+    from .utils import prng
+
+    datasets, sampler, world = _datasets(args)
+    if datasets is None:
+        print("no scene index files found", file=sys.stderr)
+        return 1
+    cfg = TrainConfig(
+        refiner=RefinerConfig(crop_size=args.window + 4, window=args.window),
+        optim=OptimConfig(true_batch_size=args.batch_size * world),
+        n_tracks=args.n_tracks)
+    trainer = Trainer(cfg, device=args.device)
+    rng = prng.PRNGKey(cfg.seed)
+    return _train_loop(args, trainer, datasets, sampler, collate,
+                       lambda step: (prng.fold_in(rng, step),),
+                       "ckpt_ep{epoch}.msgpack")
+
+
+def cmd_train_matcher(args) -> int:
+    """Train the detector-free matcher (coarse, or with --fine the fine
+    stage too) on depth-warped cell labels."""
+    from .models.loftr import MatcherConfig
+    from .train.matcher_trainer import (MatcherTrainConfig, MatcherTrainer,
+                                        tuple_to_pair_batch)
+    from .train.optimizers import OptimConfig
+
+    if args.dtype_train != "float32":
+        raise SystemExit("--dtype-train bfloat16 is not ported yet "
+                         "(ROADMAP item 12)")
+    datasets, sampler, world = _datasets(args)
+    if datasets is None:
+        print("no scene index files found", file=sys.stderr)
+        return 1
+    cfg = MatcherTrainConfig(
+        arch=args.arch,
+        matcher=MatcherConfig(fine_enabled=bool(args.fine)),
+        optim=OptimConfig(true_batch_size=args.batch_size * world,
+                          backbone_path="backbone"))
+    try:
+        trainer = MatcherTrainer(cfg, device=args.device)
+    except NotImplementedError as e:
+        raise SystemExit(str(e)) from None
+    return _train_loop(args, trainer, datasets, sampler, tuple_to_pair_batch,
+                       lambda step: (), "matcher_ep{epoch}.msgpack")
+
+
+def cmd_train_matcher_selfsup(args) -> int:
+    from .models.loftr import MatcherConfig
+    from .train.selfsup import train_matcher_selfsup
+    from .utils.checkpoint import load_matcher_params
+
+    if args.dtype_train != "float32":
+        raise SystemExit("--dtype-train bfloat16 is not ported yet "
+                         "(ROADMAP item 12)")
+    init = None
+    if args.init_ckpt:
+        init = load_matcher_params(args.init_ckpt, cfg=MatcherConfig())
+    train_matcher_selfsup(
+        args.images, args.output, steps=args.steps, img_size=args.img_resize,
+        batch=args.batch_size, lr=args.lr, log_every=args.log_every,
+        init_params=init, device=args.device, log_json=args.log_json)
+    return 0
+
+
+def cmd_train_refiner_selfsup(args) -> int:
+    from .train.refiner_selfsup import train_refiner_selfsup
+
+    train_refiner_selfsup(
+        args.images, args.output, steps=args.steps, img_size=args.img_resize,
+        n_views=args.n_views, n_tracks=args.n_tracks, lr=args.lr,
+        log_every=args.log_every, device=args.device, log_json=args.log_json)
+    return 0
+
+
+def _add_train_io(sp):
+    sp.add_argument("--device", default="cuda",
+                    help="torch device (default cuda, which must be present)")
+    sp.add_argument("--log-json", default=None, dest="log_json",
+                    help="write one JSON line per step (loss, gradient "
+                         "norm, seconds) to this file")
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="detectorfreesfm_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -326,6 +489,85 @@ def main(argv=None) -> int:
                     help="load the FULL option namespace from a JSON file")
     add_common(sr)
     sr.set_defaults(fn=cmd_reconstruct)
+
+    st = sub.add_parser("train", help="train the multiview refiner")
+    st.add_argument("--data", required=True, help="dir of scene .npz indexes")
+    st.add_argument("--output", required=True)
+    st.add_argument("--epochs", type=int, default=25)
+    st.add_argument("--batch-size", type=int, default=1, dest="batch_size")
+    st.add_argument("--img-resize", type=int, default=832, dest="img_resize")
+    st.add_argument("--samples-per-scene", type=int, default=250,
+                    dest="samples_per_scene")
+    st.add_argument("--log-every", type=int, default=50, dest="log_every")
+    st.add_argument("--n-tracks", type=int, default=200, dest="n_tracks")
+    st.add_argument("--window", type=int, default=15)
+    st.add_argument("--init-ckpt", default=None, dest="init_ckpt",
+                    help="warm-start from a previous checkpoint")
+    st.add_argument("--max-steps", type=int, default=None, dest="max_steps")
+    st.add_argument("--start-epoch", type=int, default=0, dest="start_epoch",
+                    help="first epoch number (sampler RNG; lets one-epoch-"
+                         "per-process runs chain via --init-ckpt)")
+    _add_train_io(st)
+    st.set_defaults(fn=cmd_train)
+
+    sm = sub.add_parser("train-matcher", help="train the coarse matcher")
+    sm.add_argument("--data", required=True, help="dir of scene .npz indexes")
+    sm.add_argument("--output", required=True)
+    sm.add_argument("--epochs", type=int, default=30)
+    sm.add_argument("--batch-size", type=int, default=1, dest="batch_size")
+    sm.add_argument("--img-resize", type=int, default=832, dest="img_resize")
+    sm.add_argument("--samples-per-scene", type=int, default=200,
+                    dest="samples_per_scene")
+    sm.add_argument("--log-every", type=int, default=50, dest="log_every")
+    sm.add_argument("--dtype-train", default="float32", dest="dtype_train",
+                    choices=["float32", "bfloat16"],
+                    help="bfloat16 is not ported yet")
+    sm.add_argument("--init-ckpt", default=None, dest="init_ckpt",
+                    help="warm-start from a previous checkpoint")
+    sm.add_argument("--max-steps", type=int, default=None, dest="max_steps")
+    sm.add_argument("--start-epoch", type=int, default=0, dest="start_epoch",
+                    help="first epoch number (controls the sampler's epoch"
+                         " RNG; lets one-epoch-per-process runs chain via"
+                         " --init-ckpt without repeating samples)")
+    sm.add_argument("--fine", action="store_true",
+                    help="jointly train the fine sub-pixel stage "
+                         "(teacher-forced at GT coarse cells; needed for "
+                         "--match-type coarse_fine at inference)")
+    sm.add_argument("--arch", default="loftr",
+                    choices=["loftr", "aspan", "matchformer"],
+                    help="matcher family to train (only loftr is ported)")
+    _add_train_io(sm)
+    sm.set_defaults(fn=cmd_train_matcher)
+
+    ss = sub.add_parser("train-matcher-selfsup",
+                        help="homography self-supervised matcher bootstrap")
+    ss.add_argument("--images", required=True)
+    ss.add_argument("--output", required=True, help="checkpoint .msgpack path")
+    ss.add_argument("--steps", type=int, default=1000)
+    ss.add_argument("--batch-size", type=int, default=4, dest="batch_size")
+    ss.add_argument("--img-resize", type=int, default=416, dest="img_resize")
+    ss.add_argument("--lr", type=float, default=1e-3)
+    ss.add_argument("--log-every", type=int, default=50, dest="log_every")
+    ss.add_argument("--dtype-train", default="float32", dest="dtype_train",
+                    choices=["float32", "bfloat16"],
+                    help="bfloat16 is not ported yet")
+    ss.add_argument("--init-ckpt", default=None, dest="init_ckpt",
+                    help="warm-start from a previous checkpoint")
+    _add_train_io(ss)
+    ss.set_defaults(fn=cmd_train_matcher_selfsup)
+
+    sf = sub.add_parser("train-refiner-selfsup",
+                        help="homography self-supervised refiner bootstrap")
+    sf.add_argument("--images", required=True)
+    sf.add_argument("--output", required=True)
+    sf.add_argument("--steps", type=int, default=1000)
+    sf.add_argument("--img-resize", type=int, default=256, dest="img_resize")
+    sf.add_argument("--n-views", type=int, default=4, dest="n_views")
+    sf.add_argument("--n-tracks", type=int, default=128, dest="n_tracks")
+    sf.add_argument("--lr", type=float, default=1e-3)
+    sf.add_argument("--log-every", type=int, default=50, dest="log_every")
+    _add_train_io(sf)
+    sf.set_defaults(fn=cmd_train_refiner_selfsup)
 
     args = p.parse_args(argv)
     if getattr(args, "args_json", None):

@@ -3,12 +3,16 @@
 A copy of `SyntheticConfig`, `generate_scene` and their numpy helpers from
 the JAX package's data/synthetic.py (pure numpy when no photo textures are
 given; PIL is imported only inside the photo-texture helpers), plus the
-ground-truth epipolar error the port's checks score matches with.
+ground-truth epipolar error the port's checks score matches with, and the
+two scene writers (`write_scene`, the trainers' index layout, and
+`write_scene_eval_layout`, the CLI's), which write PNG with data/png.py
+where JAX uses PIL: the same pixels, depths, index arrays and tuples.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import List, Tuple
 
 import numpy as np
@@ -332,3 +336,72 @@ def symmetric_epipolar_error(F: np.ndarray, x0: np.ndarray,
     d1 = num / np.maximum(np.hypot(l1[:, 0], l1[:, 1]), 1e-12)
     d0 = num / np.maximum(np.hypot(l0[:, 0], l0[:, 1]), 1e-12)
     return 0.5 * (d0 + d1)
+
+
+def _to_u8(img: np.ndarray) -> np.ndarray:
+    """The JAX writers' 8-bit pixels: truncation, not rounding."""
+    return (img * 255).astype(np.uint8)
+
+
+def write_scene(out_dir: str, scene_name: str, seed: int,
+                cfg: SyntheticConfig = SyntheticConfig()) -> str:
+    """Render one scene to disk in the MegaDepth index layout; returns the
+    .npz index path. Layout:
+      out_dir/scene_name/images/view_###.png
+      out_dir/scene_name/depths/view_###.npy
+      out_dir/scene_name.npz
+    """
+    from .png import write_png
+
+    images, depths, K, qvec, tvec = generate_scene(seed, cfg)
+    sdir = os.path.join(out_dir, scene_name)
+    os.makedirs(os.path.join(sdir, "images"), exist_ok=True)
+    os.makedirs(os.path.join(sdir, "depths"), exist_ok=True)
+    image_paths, depth_paths = [], []
+    for v in range(len(images)):
+        ip = os.path.join(scene_name, "images", f"view_{v:03d}.png")
+        dp = os.path.join(scene_name, "depths", f"view_{v:03d}.npy")
+        write_png(os.path.join(out_dir, ip), _to_u8(images[v]))
+        np.save(os.path.join(out_dir, dp), depths[v])
+        image_paths.append(ip)
+        depth_paths.append(dp)
+    rng = np.random.default_rng(seed + 991)
+    tuples = np.stack([
+        rng.choice(len(images), cfg.tuple_size, replace=False)
+        for _ in range(cfg.n_tuples)
+    ])
+    idx_path = os.path.join(out_dir, f"{scene_name}.npz")
+    np.savez(
+        idx_path,
+        image_paths=np.asarray(image_paths, object),
+        depth_paths=np.asarray(depth_paths, object),
+        K=K, qvec=qvec, tvec=tvec, tuples=tuples,
+    )
+    return idx_path
+
+
+def write_scene_eval_layout(scene_dir: str, seed: int,
+                            cfg: SyntheticConfig = SyntheticConfig()):
+    """Write one scene in the layout the CLI reads (images/ +
+    poses/{stem}.txt 4x4 w2c + intrins/{stem}.txt 3x3), so that the verbs
+    score poses against exact ground truth."""
+    from .png import write_png
+
+    images, _depths, K, qvec, tvec = generate_scene(seed, cfg)
+    for sub in ("images", "poses", "intrins"):
+        os.makedirs(os.path.join(scene_dir, sub), exist_ok=True)
+    for v in range(len(images)):
+        stem = f"view_{v:03d}"
+        write_png(os.path.join(scene_dir, "images", stem + ".png"),
+                  _to_u8(images[v]))
+        a, b, c, d = qvec[v]
+        R = np.array([
+            [1 - 2 * (c * c + d * d), 2 * (b * c - a * d), 2 * (b * d + a * c)],
+            [2 * (b * c + a * d), 1 - 2 * (b * b + d * d), 2 * (c * d - a * b)],
+            [2 * (b * d - a * c), 2 * (c * d + a * b), 1 - 2 * (b * b + c * c)],
+        ])
+        M = np.eye(4)
+        M[:3, :3] = R
+        M[:3, 3] = tvec[v]
+        np.savetxt(os.path.join(scene_dir, "poses", stem + ".txt"), M)
+        np.savetxt(os.path.join(scene_dir, "intrins", stem + ".txt"), K[v])

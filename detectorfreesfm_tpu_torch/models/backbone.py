@@ -18,7 +18,13 @@ from torch import nn
 
 
 class BatchNorm(nn.Module):
-    """Inference-only BatchNorm2d holding exactly flax's four tensors."""
+    """Inference-mode BatchNorm2d holding exactly flax's four tensors.
+
+    The JAX trainers differentiate with respect to the whole variables
+    tree, so with `use_running_average` the running statistics get
+    gradients and the optimizer moves them. A trainer that sets
+    `requires_grad` on the statistics gets flax's formula, through which
+    autograd reaches them (F.batch_norm's does not)."""
 
     def __init__(self, c: int, eps: float = 1e-5):
         super().__init__()
@@ -29,6 +35,10 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(c))
 
     def forward(self, x):
+        if self.running_mean.requires_grad or self.running_var.requires_grad:
+            mul = torch.rsqrt(self.running_var + self.eps) * self.weight
+            return ((x - self.running_mean[:, None, None]) * mul[:, None, None]
+                    + self.bias[:, None, None])
         return F.batch_norm(x, self.running_mean, self.running_var,
                             self.weight, self.bias, False, 0.0, self.eps)
 

@@ -7,7 +7,9 @@ dual-softmax + mutual-NN matching (dense, or fused through the CUDA kernels
 of ops/fused_dsm.py), and the optional 5x5-window fine stage with
 soft-argmax. Images enter NHWC (B, H, W, 1) in [0, 1], as in JAX; matches
 leave as fixed-capacity top-K sets in network-input pixels. Compute is
-float32 only so far.
+float32 only so far. The training paths are JAX's too: `return_conf` also
+returns the dense (B, L, S) confidence (and forces the dense path), and
+`fine_at` runs the same fine head at teacher-forced coarse cells.
 
 The TPU kernel's tile sizes (`dsm_tile_l/s`) have no counterpart here.
 """
@@ -124,9 +126,13 @@ class DetectorFreeMatcher(nn.Module):
             attention="linear")
         self.fine_match = FinePreprocessAndMatch(cfg)
 
-    def forward(self, image0, image1, valid_hw0=None, valid_hw1=None):
+    def forward(self, image0, image1, valid_hw0=None, valid_hw1=None,
+                return_conf: bool = False, fine_at=None):
         """image0/1: (B, H, W, 1) in [0, 1]; valid_hw: (B, 2) int (h, w)
-        live region at full res, optional."""
+        live region at full res, optional. With `return_conf` the dense
+        (B, L, S) confidence comes back too; with `fine_at`, (idx0, idx1)
+        int (B, Kf) coarse cells, so do the fine head's (delta, std) there:
+        out[, conf][, (delta, std)], as in JAX."""
         cfg = self.cfg
         b, h, wd = image0.shape[:3]
         h8, w8 = h // 8, wd // 8
@@ -150,7 +156,8 @@ class DetectorFreeMatcher(nn.Module):
         mask1 = grid_valid(valid_hw1)
         c0, c1 = self.coarse_transformer(c0, c1, mask0, mask1)
 
-        if cfg.fused_matching:
+        conf = None
+        if cfg.fused_matching and not return_conf:
             matches = fused_extract_matches(
                 c0, c1, mask0, mask1, cfg.match_threshold, cfg.max_matches,
                 temperature=cfg.dsoftmax_temperature,
@@ -171,4 +178,15 @@ class DetectorFreeMatcher(nn.Module):
         if cfg.fine_enabled:
             delta, _std = self.fine_match(fine[:b], fine[b:], matches, w8)
             xy1 = xy1 + delta
-        return MatchOutput(xy0, xy1, matches.conf, matches.valid)
+        out = MatchOutput(xy0, xy1, matches.conf, matches.valid)
+        extra = (conf,) if return_conf else ()
+        if fine_at is not None:
+            # The teacher-forced pass reuses the inference fine head, so a
+            # jointly trained checkpoint serves both.
+            t_idx0, t_idx1 = fine_at
+            teacher = CoarseMatches(
+                t_idx0, t_idx1, torch.ones(t_idx0.shape, device=t_idx0.device),
+                torch.ones(t_idx0.shape, dtype=torch.bool,
+                           device=t_idx0.device))
+            extra += (self.fine_match(fine[:b], fine[b:], teacher, w8),)
+        return (out,) + extra if extra else out

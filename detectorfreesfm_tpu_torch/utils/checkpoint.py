@@ -1,7 +1,9 @@
-"""Flax msgpack checkpoints -> the port's state_dicts.
+"""Flax msgpack checkpoints <-> the port's state_dicts.
 
 Counterpart of the JAX package's train/selfsup.py `load_matcher_params` and
-train/refiner_selfsup.py `load_refiner_params`.
+train/refiner_selfsup.py `load_refiner_params`, and of the trainers'
+`serialization.to_bytes` writers (`save_checkpoint`, through
+`state_dict_to_flax_variables`, the inverse map).
 The checkpoint is decoded with the pure-Python utils/msgpack_lite.py, and
 each flax leaf maps by name onto the port's module tree:
 
@@ -28,7 +30,7 @@ from typing import Dict, Iterator, Tuple
 import torch
 from torch import nn
 
-from .msgpack_lite import msgpack_restore
+from .msgpack_lite import msgpack_restore, msgpack_serialize
 
 _STAT_NAMES = {"mean": "running_mean", "var": "running_var"}
 
@@ -72,6 +74,48 @@ def flax_variables_to_state_dict(variables: dict) -> Dict[str, torch.Tensor]:
     return out
 
 
+def state_dict_to_flax_variables(state: Dict[str, torch.Tensor]) -> dict:
+    """A state_dict -> the flax {"params": ..., "batch_stats": ...} tree:
+    conv and dense weights transposed back to `kernel`, 1-d weights to
+    `scale`, `running_mean`/`running_var` to batch_stats `mean`/`var`.
+    Dtypes are kept."""
+    out: dict = {}
+    for name, t in state.items():
+        *mods, leaf = name.split(".")
+        t = t.detach()
+        if leaf in ("running_mean", "running_var"):
+            coll, key = "batch_stats", leaf[len("running_"):]
+        elif leaf == "weight" and t.dim() == 4:
+            coll, key, t = "params", "kernel", t.permute(2, 3, 1, 0)
+        elif leaf == "weight" and t.dim() == 2:
+            coll, key, t = "params", "kernel", t.t()
+        elif leaf == "weight" and t.dim() == 1:
+            coll, key = "params", "scale"
+        elif leaf == "bias":
+            coll, key = "params", "bias"
+        else:
+            raise ValueError(f"no flax leaf for {name} {tuple(t.shape)}")
+        node = out.setdefault(coll, {})
+        for m in mods:
+            node = node.setdefault(m, {})
+        node[key] = t.contiguous()
+    return out
+
+
+def save_checkpoint(path: str, variables: dict, step=None) -> None:
+    """Write `{"params": variables, "step": step}` (or `{"params":
+    variables}` without a step), as the JAX trainers' and bootstraps'
+    `serialization.to_bytes` does; JAX's loaders read the file."""
+    import os
+
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    tree = {"params": variables}
+    if step is not None:
+        tree["step"] = int(step)
+    with open(path, "wb") as f:
+        f.write(msgpack_serialize(tree))
+
+
 def read_variables(path: str) -> dict:
     """The flax variables of a checkpoint saved as {params: vars[, step]}."""
     with open(path, "rb") as f:
@@ -97,29 +141,48 @@ def match_state_dict(state: Dict[str, torch.Tensor],
 FINE_PREFIX = "fine_match."
 
 
+# flax's lecun_normal: a normal truncated to +-2 std, scaled so that its
+# std is sqrt(1 / fan_in) (the truncation's std is 0.8796...).
+_TRUNC_STD = 0.87962566103423978
+
+
+def flax_init_(module: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Initialise `module` in place as flax initialises the JAX package's
+    models: Dense and Conv kernels lecun_normal, biases 0, LayerNorm and
+    BatchNorm scales 1 and biases 0, BatchNorm statistics (0, 1). The
+    draws come from `generator` (on the CPU) and differ from JAX's; their
+    distributions do not."""
+    from ..models.backbone import BatchNorm
+
+    with torch.no_grad():
+        for mod in module.modules():
+            if isinstance(mod, (nn.Linear, nn.Conv2d)):
+                w = mod.weight
+                fan_in = w[0].numel()
+                std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
+                draw = torch.empty(w.shape)
+                nn.init.trunc_normal_(draw, 0.0, std, -2 * std, 2 * std,
+                                      generator=generator)
+                w.copy_(draw)
+                if mod.bias is not None:
+                    mod.bias.zero_()
+            elif isinstance(mod, (nn.LayerNorm, BatchNorm)):
+                mod.weight.fill_(1.0)
+                mod.bias.zero_()
+                if isinstance(mod, BatchNorm):
+                    mod.running_mean.zero_()
+                    mod.running_var.fill_(1.0)
+    return module
+
+
 def fresh_fine_head(cfg, seed: int = 0) -> Dict[str, torch.Tensor]:
-    """A random fine head (`fine_match.*`) drawn from an explicit
-    torch.Generator: torch's default Linear init (kaiming-uniform weights,
-    uniform biases) and LayerNorm init (ones, zeros)."""
+    """A random fine head (`fine_match.*`), initialised as flax does
+    (`flax_init_`) from a torch.Generator seeded with `seed`."""
     from ..models.loftr import FinePreprocessAndMatch
 
-    gen = torch.Generator().manual_seed(seed)
-    with torch.device("meta"):
-        head = FinePreprocessAndMatch(cfg)
-    out = {}
-    for name, mod in head.named_modules():
-        if isinstance(mod, nn.Linear):
-            w = torch.empty(mod.weight.shape)
-            nn.init.kaiming_uniform_(w, a=math.sqrt(5), generator=gen)
-            out[f"{name}.weight"] = w
-            if mod.bias is not None:
-                bound = 1.0 / math.sqrt(mod.in_features)
-                out[f"{name}.bias"] = torch.empty(mod.bias.shape).uniform_(
-                    -bound, bound, generator=gen)
-        elif isinstance(mod, nn.LayerNorm):
-            out[f"{name}.weight"] = torch.ones(mod.weight.shape)
-            out[f"{name}.bias"] = torch.zeros(mod.bias.shape)
-    return {FINE_PREFIX + k: v for k, v in out.items()}
+    head = flax_init_(FinePreprocessAndMatch(cfg),
+                      torch.Generator().manual_seed(seed))
+    return {FINE_PREFIX + k: v for k, v in head.state_dict().items()}
 
 
 def load_matcher_params(path: str, cfg=None) -> Dict[str, torch.Tensor]:

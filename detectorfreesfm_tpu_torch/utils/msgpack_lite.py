@@ -1,10 +1,11 @@
-"""Pure-Python decoder of the msgpack subset that flax checkpoints use.
+"""Pure-Python codec of the msgpack subset that flax checkpoints use.
 
-Counterpart of `flax.serialization.msgpack_restore`: maps, arrays, str/bin,
-ints, floats, nil/bool, and the flax ext types 1 (ndarray) and 3 (numpy
-scalar), each a nested msgpack `(shape, dtype-name, buffer)`. Arrays come
-back as torch tensors in their stored dtype; bfloat16 goes through
-`torch.frombuffer`, since numpy has no bfloat16.
+Counterpart of `flax.serialization.msgpack_restore` and `msgpack_serialize`:
+maps, arrays, str/bin, ints, floats, nil/bool, and the flax ext types 1
+(ndarray) and 3 (numpy scalar), each a nested msgpack `(shape, dtype-name,
+buffer)`. Arrays come back as torch tensors in their stored dtype;
+bfloat16 goes through `torch.frombuffer`, since numpy has no bfloat16.
+`msgpack_serialize` writes tensors as ext type 1, as flax writes arrays.
 """
 
 from __future__ import annotations
@@ -122,3 +123,84 @@ def msgpack_restore(data: bytes):
     if r.pos != len(r.data):
         raise ValueError("trailing bytes after msgpack object")
     return out
+
+
+_NAMES = {v: k for k, v in _DTYPES.items()}
+
+
+def _pack_len(out: bytearray, n: int, fix: int, fix_max: int, codes):
+    """A length header: the fix form below fix_max, else 8/16/32-bit."""
+    if fix is not None and n < fix_max:
+        out.append(fix | n)
+    elif codes[0] is not None and n < 2 ** 8:
+        out += struct.pack(">BB", codes[0], n)
+    elif n < 2 ** 16:
+        out += struct.pack(">BH", codes[1], n)
+    else:
+        out += struct.pack(">BI", codes[2], n)
+
+
+def _pack(out: bytearray, x) -> None:
+    if x is None:
+        out.append(0xC0)
+    elif isinstance(x, bool):
+        out.append(0xC3 if x else 0xC2)
+    elif isinstance(x, int):
+        if 0 <= x < 0x80:
+            out.append(x)
+        elif -32 <= x < 0:
+            out.append(x & 0xFF)
+        elif 0 <= x < 2 ** 64:
+            out += struct.pack(">BQ", 0xCF, x)
+        elif -(2 ** 63) <= x < 0:
+            out += struct.pack(">Bq", 0xD3, x)
+        else:
+            raise ValueError(f"integer out of msgpack range: {x}")
+    elif isinstance(x, float):
+        out += struct.pack(">Bd", 0xCB, x)
+    elif isinstance(x, str):
+        raw = x.encode("utf-8")
+        _pack_len(out, len(raw), 0xA0, 32, (0xD9, 0xDA, 0xDB))
+        out += raw
+    elif isinstance(x, (bytes, bytearray)):
+        _pack_len(out, len(x), None, 0, (0xC4, 0xC5, 0xC6))
+        out += x
+    elif isinstance(x, dict):
+        _pack_len(out, len(x), 0x80, 16, (None, 0xDE, 0xDF))
+        for k, v in x.items():
+            _pack(out, k)
+            _pack(out, v)
+    elif isinstance(x, (list, tuple)):
+        _pack_len(out, len(x), 0x90, 16, (None, 0xDC, 0xDD))
+        for v in x:
+            _pack(out, v)
+    elif isinstance(x, torch.Tensor):
+        payload = _tensor_payload(x)
+        n = len(payload)
+        fixext = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}
+        if n in fixext:
+            out.append(fixext[n])
+        else:
+            _pack_len(out, n, None, 0, (0xC7, 0xC8, 0xC9))
+        out += struct.pack(">b", _EXT_NDARRAY)
+        out += payload
+    else:
+        raise TypeError(f"cannot msgpack {type(x).__name__}")
+
+
+def _tensor_payload(t: torch.Tensor) -> bytes:
+    t = t.detach().cpu().contiguous()
+    if t.dtype not in _NAMES:
+        raise ValueError(f"unsupported array dtype {t.dtype}")
+    raw = t.reshape(-1).view(torch.uint8).numpy().tobytes() if t.numel() \
+        else b""
+    return msgpack_serialize([list(t.shape), _NAMES[t.dtype], raw])
+
+
+def msgpack_serialize(obj) -> bytes:
+    """Encode a tree of dicts, lists, scalars, str/bytes and tensors, as
+    `flax.serialization.msgpack_serialize` does (tensors as flax's ndarray
+    ext type; bfloat16 kept as bfloat16)."""
+    out = bytearray()
+    _pack(out, obj)
+    return bytes(out)

@@ -19,6 +19,12 @@ backend, by an ulp or so.
 Integer arithmetic runs in int64 with a 32-bit mask, since torch has no
 full uint32 arithmetic. The draws are made on `device` (None means CUDA,
 as for every entry point of the port; the CPU only when asked).
+
+The trainers' draws are here too: `PRNGKey`, `split`, `fold_in`,
+`uniform`, `randint` and `normal` take and give raw uint32[2] keys as
+numpy arrays and follow `jax.random` with the same layout. `uniform` and
+`randint` are bit-exact; `normal` goes through `erfinv`, which may differ
+by an ulp or so.
 """
 
 from __future__ import annotations
@@ -102,3 +108,76 @@ def stable_rngs(entries, seed: int = 0) -> np.ndarray:
         out[i, 0] = zlib.crc32(s) ^ salt
         out[i, 1] = zlib.crc32(b"\x9e" + s)
     return out
+
+
+def PRNGKey(seed: int) -> np.ndarray:
+    """`jax.random.PRNGKey(seed)`: the raw key [0, seed] of a 32-bit
+    seed."""
+    return np.array([0, int(seed) & _MASK], np.uint32)
+
+
+def _threefry_pairs(key, n: int):
+    """threefry2x32 of `key` over counters (0, i), i < n, as numpy uint32
+    words (both unxored)."""
+    k = np.asarray(key, np.uint32).astype(np.int64)
+    lo = torch.arange(n, dtype=torch.int64)
+    b0, b1 = threefry2x32(int(k[0]), int(k[1]), torch.zeros_like(lo), lo)
+    return b0.numpy().astype(np.uint32), b1.numpy().astype(np.uint32)
+
+
+def split(key, num: int = 2) -> np.ndarray:
+    """`jax.random.split(key, num)`: (num, 2) uint32 keys."""
+    b0, b1 = _threefry_pairs(key, num)
+    return np.stack([b0, b1], -1)
+
+
+def fold_in(key, data: int) -> np.ndarray:
+    """`jax.random.fold_in(key, data)` for a 32-bit integer."""
+    k = np.asarray(key, np.uint32).astype(np.int64)
+    b0, b1 = threefry2x32(int(k[0]), int(k[1]),
+                          torch.zeros(1, dtype=torch.int64),
+                          torch.tensor([int(data) & _MASK]))
+    return np.array([int(b0[0]), int(b1[0])], np.uint32)
+
+
+def uniform(key, shape=(), minval=0.0, maxval=1.0, device=None
+            ) -> torch.Tensor:
+    """`jax.random.uniform(key, shape, minval=, maxval=)` in float32:
+    max(minval, fma(f, maxval - minval, minval)), f in [0, 1) from the top
+    23 bits, with the bounds rounded to float32 first."""
+    dev = resolve_device(device)
+    shape = tuple(int(s) for s in shape)
+    bits = random_bits(key, shape, dev)
+    f = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
+    lo = torch.tensor(minval, dtype=torch.float32, device=dev)
+    hi = torch.tensor(maxval, dtype=torch.float32, device=dev)
+    # XLA fuses the scale and shift into one fused multiply-add: the
+    # float32 product is exact in float64, so one rounding of the float64
+    # sum gives the same float32 (double rounding aside, which the tests
+    # would show).
+    r = (f.double() * (hi - lo).double() + lo.double()).float()
+    return torch.maximum(lo, r)
+
+
+def randint(key, shape, minval: int, maxval: int, device=None
+            ) -> torch.Tensor:
+    """`jax.random.randint(key, shape, minval, maxval)` (int32): two 32-bit
+    draws from split(key) combined modulo the span, as JAX does."""
+    dev = resolve_device(device)
+    shape = tuple(int(s) for s in shape)
+    k1, k2 = split(key, 2)
+    hi = random_bits(k1, shape, dev)
+    lo = random_bits(k2, shape, dev)
+    span = maxval - minval if maxval > minval else 1
+    mult = (2 ** 16) % span
+    mult = ((mult * mult) & _MASK) % span  # uint32 wraps, as in JAX
+    off = ((((hi % span) * mult) & _MASK) + (lo % span)) & _MASK
+    return (minval + off % span).to(torch.int32)
+
+
+def normal(key, shape=(), device=None) -> torch.Tensor:
+    """`jax.random.normal(key, shape)` in float32: sqrt(2) erfinv(u), u
+    uniform on (nextafter(-1, 0), 1)."""
+    lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
+    u = uniform(key, shape, lo, 1.0, device)
+    return torch.erfinv(u) * float(np.float32(np.sqrt(2.0)))

@@ -555,3 +555,74 @@ def test_triangulation_of_a_large_batch_on_the_card():
     assert bool(okg.all()) and torch.equal(okg.cpu(), okc)
     np.testing.assert_allclose(Xg.cpu().numpy(), Xc.numpy(), rtol=1e-3,
                                atol=1e-3)
+
+
+def _train_tuple(size=128, views=3, seed=0):
+    from detectorfreesfm_tpu_torch.data.synthetic import (SyntheticConfig,
+                                                          generate_scene)
+
+    imgs, d, K, q, t = generate_scene(seed, SyntheticConfig(
+        size=size, n_views=views))
+    return {"images": imgs[..., None][None], "depths": d[None],
+            "K": K[None].astype(np.float32),
+            "qvec": q[None].astype(np.float32),
+            "tvec": t[None].astype(np.float32)}
+
+
+@pytest.mark.cuda
+def test_trainer_step_on_the_card_equals_the_cpu():
+    """One refiner Trainer step from the same parameters and key: the loss
+    and the gradient norm on the card equal the CPU's to 1e-4."""
+    _needs_cuda()
+    from detectorfreesfm_tpu_torch.models.multiview_matcher import (
+        RefinerConfig)
+    from detectorfreesfm_tpu_torch.train.trainer import TrainConfig, Trainer
+    from detectorfreesfm_tpu_torch.utils import prng
+
+    cfg = TrainConfig(refiner=RefinerConfig(crop_size=11, window=7),
+                      n_tracks=32)
+    batch = _train_tuple()
+    out = {}
+    for dev in ("cpu", "cuda"):
+        tr = Trainer(cfg, device=dev)
+        state = tr.init_state(batch)
+        tr.train_step(state, batch, prng.PRNGKey(3))
+        out[dev] = tr.history[0]
+    for k in ("loss", "grad_norm"):
+        assert abs(out["cuda"][k] - out["cpu"][k]) <= 1e-4 * abs(
+            out["cpu"][k]), (k, out)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fine", [False, True])
+def test_matcher_trainer_step_on_the_card_equals_the_cpu(fine):
+    """One MatcherTrainer step (coarse, and joint fine) from the r5 warm
+    start, as `train-matcher --init-ckpt` takes it: loss and gradient norm
+    on the card equal the CPU's to 1e-4, and the fused kernels stay off
+    the path. (From a fresh flax-style init the norm differs by ~2e-4:
+    with BatchNorm at mean 0, variance 1, bias 0, ReLU inputs that one
+    device sums to an exact 0 and the other to a float32 residue move
+    single channels' gradients, as tests/test_torch_train_matcher.py
+    shows against JAX.)"""
+    _needs_cuda()
+    from detectorfreesfm_tpu_torch.models.loftr import MatcherConfig
+    from detectorfreesfm_tpu_torch.train.matcher_trainer import (
+        MatcherTrainConfig, MatcherTrainer, tuple_to_pair_batch)
+
+    tup = _train_tuple(size=128, views=2)
+    batch = tuple_to_pair_batch([{k: v[0] for k, v in tup.items()}])
+    cfg = MatcherTrainConfig(matcher=MatcherConfig(
+        fine_enabled=fine, fused_matching=True))
+    out = {}
+    for k in fused_dsm.launches:
+        fused_dsm.launches[k] = 0
+    for dev in ("cpu", "cuda"):
+        tr = MatcherTrainer(cfg, device=dev)
+        state = tr.init_state(batch)
+        state = state._replace(params=tr.load_params(WEIGHTS, state.params))
+        tr.train_step(state, batch)
+        out[dev] = tr.history[0]
+    assert fused_dsm.launches == {"dsm_pass1": 0, "dsm_pass2": 0}
+    for k in ("loss", "grad_norm"):
+        assert abs(out["cuda"][k] - out["cpu"][k]) <= 1e-4 * abs(
+            out["cpu"][k]), (k, out)
