@@ -42,7 +42,7 @@ standard library, numpy, torch and the port. Phases, one JSON line each:
            to the JAX package's own CLI on the same files (recorded with
            `python tests/test_torch_pipeline.py --record`); run B, the
            same command in a subprocess, resumes without matching; run C,
-           8 views (28 pairs), must complete; fused against dense
+           6 views (15 pairs), must complete; fused against dense
            matching at 832 px; full report in
            build/smoke_reconstruct/reconstruct.json
   train    the four training verbs through the port's cli.main on two
@@ -57,6 +57,20 @@ standard library, numpy, torch and the port. Phases, one JSON line each:
            training, the trained matcher served through them; step times,
            peak memory and a torch.profiler breakdown of one steady
            train-matcher step; full report in build/smoke_train/train.json
+  eval     `detectorfreesfm_tpu_torch.cli eval-dataset --triangulation
+           --known-intrinsics --imc-bags` on two 4-view scenes written as
+           PNG at 2000 px (E1: the verb's defaults, 832 px, dense), held
+           to the JAX package's own eval-dataset on the same files
+           (recorded with `python tests/test_torch_eval_dataset.py
+           --record`): models, poses equal to poses/, metrics.txt; E2, the
+           same command with --isolate-scenes, resumes every scene in a
+           subprocess; E3, the first scene with `reconstruct
+           --triangulation --img-resize 1600` through both kernels (one
+           launch each per batch of 8 pairs), its stage times and peak
+           memory, fused against dense at 1600 px on one pair, and the
+           ETH3D accuracy/completeness of the 832 and 1600 px models
+           against the scene's true surface; both passes at 1600 px,
+           B = 8; full report in build/smoke_eval/eval.json
 
 The build phase also builds the native image loader (g++, -ljpeg -lpng)
 and says whether it linked. Any failed check raises (non-zero exit). The
@@ -1841,8 +1855,9 @@ def sfm_summary(report):
 
 RECON_SIZE = 1040          # rendered larger than the 832 px network frame
 RECON_VIEWS = 4
-RECON_SCALE_VIEWS = 8      # run C: 28 pairs (cut from 16, then 12,
-                           # to make room for the train phase, PERF.md §4)
+RECON_SCALE_VIEWS = 6      # run C: 15 pairs (cut from 16, then 12 and 8,
+                           # to make room for the train and eval phases,
+                           # PERF.md §4)
 RECON_BATCH = 8            # the verb's batch default on the card
 STAGE_KEYS = ("match", "coarse_sfm", "io", "refine")
 
@@ -1986,30 +2001,40 @@ def written_files(out):
     return missing
 
 
+def _check_model_gates(got, ref, where):
+    """Hold the models of one run of the verb (reconstruct_numbers, and
+    its result line) to the JAX CLI's on the same files: two refinement
+    iterations, the same registered sets, coarse points within 1%,
+    refined points and observations within 2%, mean reprojection within
+    0.05 px, and points coloured."""
+    check(got["result"]["status"] == "ok"
+          and got["result"].get("refine_iterations_completed") == 2,
+          where, "status", got["result"])
+    g, r = got["coarse"], ref["coarse"]
+    check(g["registered"] == r["registered"], where, "coarse: registered",
+          g["registered"], r["registered"])
+    check(abs(g["n_points"] - r["n_points"]) <= 0.01 * r["n_points"],
+          where, "coarse: points", g["n_points"], r["n_points"])
+    g, r = got["refined"], ref["refined"]
+    check(g["registered"] == r["registered"], where, "refined: registered",
+          g["registered"], r["registered"])
+    for k in ("n_points", "n_observations"):
+        check(abs(g[k] - r[k]) <= 0.02 * r[k], where, "refined:", k, g[k],
+              r[k])
+    check(abs(g["mean_reproj_px"] - r["mean_reproj_px"]) <= 0.05,
+          where, "refined: mean reprojection", g["mean_reproj_px"],
+          r["mean_reproj_px"])
+    check(g["grey_fraction"] < 0.5, where, "refined: grey points",
+          g["grey_fraction"])
+
+
 def _check_reconstruct_gates(got, ref):
     """Hold run A of the verb on the card to the JAX CLI's numbers."""
     check(got["launches"] == {"dsm_pass1": 1, "dsm_pass2": 1},
           "reconstruct: kernel launches", got["launches"])
-    check(got["result"]["status"] == "ok"
-          and got["result"].get("refine_iterations_completed") == 2,
-          "reconstruct: status", got["result"])
     check(not got["missing_files"], "reconstruct: files missing",
           got["missing_files"])
-    g, r = got["coarse"], ref["coarse"]
-    check(g["registered"] == r["registered"], "coarse: registered",
-          g["registered"], r["registered"])
-    check(abs(g["n_points"] - r["n_points"]) <= 0.01 * r["n_points"],
-          "coarse: points", g["n_points"], r["n_points"])
-    g, r = got["refined"], ref["refined"]
-    check(g["registered"] == r["registered"], "refined: registered",
-          g["registered"], r["registered"])
-    for k in ("n_points", "n_observations"):
-        check(abs(g[k] - r[k]) <= 0.02 * r[k], "refined:", k, g[k], r[k])
-    check(abs(g["mean_reproj_px"] - r["mean_reproj_px"]) <= 0.05,
-          "refined: mean reprojection", g["mean_reproj_px"],
-          r["mean_reproj_px"])
-    check(g["grey_fraction"] < 0.5, "refined: grey points",
-          g["grey_fraction"])
+    _check_model_gates(got, ref, "reconstruct")
     a, b = got["result"]["pose_auc"], ref["result"]["pose_auc"]
     check(abs(a["auc@5"] - b["auc@5"]) <= 0.02, "AUC@5", a, b)
 
@@ -2102,7 +2127,7 @@ def _decode_timing(paths, work):
 def reconstruct_phase():
     """The `reconstruct` verb on the card, as a user calls it, on a scene
     written to disk: run A (gated against JAX_RECONSTRUCT), run B (a
-    resuming rerun in a subprocess) and run C (8 views, report-only
+    resuming rerun in a subprocess) and run C (6 views, report-only
     apart from completion); fused against dense matching at 832 px, and
     image decoding serial against the verb's 8 threads."""
     import dataclasses
@@ -2162,7 +2187,7 @@ def reconstruct_phase():
                  stores_rewritten=[os.path.getmtime(p) for p in stores]
                  != mtimes)
 
-    # Run C: 8 views (28 pairs) through the same verb.
+    # Run C: RECON_SCALE_VIEWS views through the same verb.
     scene_c = os.path.join(work, "scene_c")
     out_c = os.path.join(work, "out_c")
     names_c, _K, _q, _t = write_scene(scene_c, n_views=RECON_SCALE_VIEWS)
@@ -2493,6 +2518,514 @@ def train_phase():
     return summary
 
 
+# ---------------------------------------------------------------------------
+# The eval phase: the `eval-dataset` verb in known-pose triangulation mode
+# (the ETH3D protocol) on a two-scene dataset written as PNG, held to the
+# JAX package's own `cli eval-dataset` on the same files (JAX_EVAL,
+# recorded on the CPU with `JAX_PLATFORMS=cpu python
+# tests/test_torch_eval_dataset.py --record`); its isolated rerun; and the
+# first scene again at 1600 px through both kernels, scored against the
+# scene's true surface.
+# ---------------------------------------------------------------------------
+
+EVAL_SIZE = 2000           # written larger than both network frames
+EVAL_VIEWS = 4
+EVAL_SCENES = (("s0_3bag", 0), ("s1_3bag", 1))  # (name, seed)
+EVAL_ARGS = ("--triangulation", "--known-intrinsics", "--imc-bags")
+ETH3D_RESIZE = 1600
+ETH3D_B8_SHAPE = dict(b=8, l=40000, s=40000, c=256)  # the verb's batch
+PC_TOLERANCES = (0.02, 0.05, 0.1)  # world units; the scene spans 4-12
+SURFACE_STRIDE = 16        # true surface: every 16th pixel of each view
+
+# The JAX package's `cli eval-dataset` on the CPU from the same PNG files
+# (3181 s there; stage times match / coarse_sfm / io / refine:
+# s0_3bag 54.4 / 15.43 / 3.84 / 1484.76 s, s1_3bag 82.96 / 15.58 / 2.13 /
+# 1443.61 s).
+JAX_EVAL = {
+    "metrics": {
+        "3bag": {
+            "auc@1": 1.0,
+            "auc@10": 1.0,
+            "auc@20": 1.0,
+            "auc@3": 1.0,
+            "auc@5": 1.0,
+            "registered_ratio": 1.0,
+            "wall_s": 1590.5
+        },
+        "all": {
+            "auc@1": 1.0,
+            "auc@10": 1.0,
+            "auc@20": 1.0,
+            "auc@3": 1.0,
+            "auc@5": 1.0,
+            "registered_ratio": 1.0,
+            "wall_s": 1590.5
+        },
+        "per_scene": {
+            "s0_3bag": {
+                "auc@1": 1.0,
+                "auc@10": 1.0,
+                "auc@20": 1.0,
+                "auc@3": 1.0,
+                "auc@5": 1.0,
+                "registered_ratio": 1.0,
+                "wall_s": 1621.5
+            },
+            "s1_3bag": {
+                "auc@1": 1.0,
+                "auc@10": 1.0,
+                "auc@20": 1.0,
+                "auc@3": 1.0,
+                "auc@5": 1.0,
+                "registered_ratio": 1.0,
+                "wall_s": 1559.5
+            }
+        }
+    },
+    "scenes": {
+        "s0_3bag": {
+            "coarse": {
+                "grey_fraction": 0.008283433133732535,
+                "mean_reproj_px": 0.864900021613546,
+                "n_observations": 21655,
+                "n_points": 10020,
+                "registered": [
+                    "view_000.png",
+                    "view_001.png",
+                    "view_002.png",
+                    "view_003.png"
+                ]
+            },
+            "refined": {
+                "grey_fraction": 0.008784773060029283,
+                "mean_reproj_px": 2.040012851469021,
+                "n_observations": 21352,
+                "n_points": 9562,
+                "registered": [
+                    "view_000.png",
+                    "view_001.png",
+                    "view_002.png",
+                    "view_003.png"
+                ]
+            },
+            "result": {
+                "n_images": 4,
+                "n_observations": 21352,
+                "n_points": 9562,
+                "n_registered": 4,
+                "pose_auc": {
+                    "auc@1": 0.9999926016417895,
+                    "auc@10": 0.999999260164179,
+                    "auc@20": 0.9999996300820895,
+                    "auc@3": 0.9999975338805965,
+                    "auc@5": 0.9999985203283579
+                },
+                "status": "ok"
+            }
+        },
+        "s1_3bag": {
+            "coarse": {
+                "grey_fraction": 0.011860940695296524,
+                "mean_reproj_px": 0.8405331244374745,
+                "n_observations": 21254,
+                "n_points": 9780,
+                "registered": [
+                    "view_000.png",
+                    "view_001.png",
+                    "view_002.png",
+                    "view_003.png"
+                ]
+            },
+            "refined": {
+                "grey_fraction": 0.011383812010443865,
+                "mean_reproj_px": 2.1381783973213238,
+                "n_observations": 20898,
+                "n_points": 9575,
+                "registered": [
+                    "view_000.png",
+                    "view_001.png",
+                    "view_002.png",
+                    "view_003.png"
+                ]
+            },
+            "result": {
+                "n_images": 4,
+                "n_observations": 20898,
+                "n_points": 9575,
+                "n_registered": 4,
+                "pose_auc": {
+                    "auc@1": 0.9999889158164018,
+                    "auc@10": 0.9999988915816402,
+                    "auc@20": 0.9999994457908201,
+                    "auc@3": 0.999996305272134,
+                    "auc@5": 0.9999977831632803
+                },
+                "status": "ok"
+            }
+        }
+    }
+}
+
+
+def write_eval_dataset(root):
+    """EVAL_SCENES written by write_scene at EVAL_SIZE px under root, the
+    scenes rendered in parallel threads. Returns {scene: (names, K, q,
+    t)}."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(max_workers=len(EVAL_SCENES)) as pool:
+        done = {name: pool.submit(write_scene, os.path.join(root, name),
+                                  seed=seed, size=EVAL_SIZE,
+                                  n_views=EVAL_VIEWS)
+                for name, seed in EVAL_SCENES}
+    return {name: f.result() for name, f in done.items()}
+
+
+def parse_metrics(text):
+    """metrics.txt (eval/aggregate.py::format_report) -> {group: {key:
+    value}}, the per-scene lines under "per_scene"; a warning line is kept
+    as a key with the value None."""
+    groups, cur = {}, None
+    for line in text.splitlines():
+        s = line.strip()
+        if s.startswith("[") and s.endswith("]"):
+            cur = groups.setdefault(s[1:-1], {})
+        elif s.startswith("---- per scene"):
+            cur = None
+            groups["per_scene"] = {}
+        elif s.startswith("(warning"):
+            cur[s] = None
+        elif cur is not None and ": " in s:
+            k, v = s.split(": ")
+            cur[k] = float(v)
+        elif "per_scene" in groups and ": " in s:
+            scene, body = s.split(": ", 1)
+            groups["per_scene"][scene] = {
+                k: float(v) for k, v in
+                (kv.split("=") for kv in body.split(", "))}
+    return groups
+
+
+def without_wall(metrics):
+    """parse_metrics' groups without the wall_s keys (timing, not result)."""
+    def strip(d):
+        return {k: v for k, v in d.items() if k != "wall_s"}
+
+    return {g: ({s: strip(m) for s, m in v.items()} if g == "per_scene"
+                else strip(v))
+            for g, v in metrics.items()}
+
+
+def run_eval_dataset(cli_main, dataset, out, *extra):
+    """One `eval-dataset --dataset dataset --output out` through a CLI's
+    main() in this process. Returns the per-scene result lines with
+    reconstruct_numbers of each scene's output and the parsed metrics.txt,
+    and the run's wall seconds and per-scene stage times."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    t0 = time.time()
+    with contextlib.redirect_stdout(buf):
+        rc = cli_main(["eval-dataset", "--dataset", dataset, "--output", out,
+                       *extra])
+    wall = time.time() - t0
+    printed = buf.getvalue()
+    check(rc == 0, "eval-dataset exit code", rc, printed[-2000:])
+    scenes, runs = {}, {}
+    for line in printed.splitlines():
+        if not line.startswith('{"scene"'):
+            continue
+        res = json.loads(line)
+        s, w = res.pop("scene"), res.pop("wall_s")
+        scenes[s] = dict(result=res)
+        if res.get("status") == "ok":
+            scenes[s].update(reconstruct_numbers(os.path.join(out, s)))
+        path = os.path.join(out, s, "stage_times.json")
+        stages = None
+        if os.path.exists(path):
+            with open(path) as f:
+                stages = json.load(f)
+        runs[s] = dict(wall_s=w, stage_times=stages)
+    with open(os.path.join(out, "metrics.txt")) as f:
+        metrics = parse_metrics(f.read())
+    return (dict(scenes=scenes, metrics=metrics),
+            dict(wall_s=wall, scenes=runs))
+
+
+def true_surface(seed, size=160):
+    """The scene's true surface as points: every pixel of generate_scene's
+    z-depth maps of the scene of `seed`, back-projected into the world. The
+    geometry (planes, poses, focal as a share of the frame) does not
+    depend on the rendered size, so a small render samples the same
+    surface (4 x 160^2 points)."""
+    from detectorfreesfm_tpu_torch.data.synthetic import (SyntheticConfig,
+                                                          generate_scene,
+                                                          quat_to_rotmat)
+
+    _imgs, depths, K, q, t = generate_scene(
+        seed, SyntheticConfig(size=size, n_views=EVAL_VIEWS))
+    ys, xs = np.mgrid[0:size, 0:size] + 0.5
+    pts = []
+    for v in range(EVAL_VIEWS):
+        d = depths[v]
+        ok = d > 0
+        ray = np.stack([(xs[ok] - K[v, 0, 2]) / K[v, 0, 0],
+                        (ys[ok] - K[v, 1, 2]) / K[v, 1, 1],
+                        np.ones(ok.sum())], -1)
+        R = quat_to_rotmat(q[v])
+        pts.append((ray * d[ok][:, None] - t[v]) @ R)  # R^T (X_c - t)
+    return np.concatenate(pts)
+
+
+def model_points(model_dir):
+    """(N, 3) points of a written model."""
+    from detectorfreesfm_tpu_torch.data import colmap_io
+
+    _c, _i, pts = colmap_io.read_model(model_dir)
+    return np.stack([p.xyz for p in pts.values()])
+
+
+def pose_errors(model_dir, scene_dir):
+    """Largest |qvec - q| and |tvec - t| of a written model's images
+    against the scene's poses/ files (the sign of q fixed by the file's)."""
+    from detectorfreesfm_tpu_torch.data import colmap_io
+    from detectorfreesfm_tpu_torch.pipeline import read_pose_txt
+
+    _c, imgs, _p = colmap_io.read_model(model_dir)
+    dq = dt = 0.0
+    for im in imgs.values():
+        q, t = read_pose_txt(os.path.join(
+            scene_dir, "poses", os.path.splitext(im.name)[0] + ".txt"))
+        dq = max(dq, float(np.abs(im.qvec - q * np.sign(q @ im.qvec)).max()))
+        dt = max(dt, float(np.abs(im.tvec - t).max()))
+    return dict(n_images=len(imgs), qvec=dq, tvec=dt)
+
+
+def check_kernels_1600_b8(seed=4):
+    """Both passes at the verb's batch of 8 at 1600 px (L = S = 40 000),
+    the shape E3 launches: each pair held to the plain version at B = 1
+    (the plain (L, S) matrices of 8 pairs do not fit), then both timed at
+    B = 8 against the bound."""
+    from detectorfreesfm_tpu_torch.ops import fused_dsm as K
+
+    shape = ETH3D_B8_SHAPE
+    f0, f1, m0, m1 = features(seed=seed, **shape)
+    ops = K.split_features(f0, f1, m0, m1, 0.1)
+    del f0, f1
+    lse_r, lse_c = K.dsm_pass1(*ops)
+    rmax, rarg, cmax, carg = K.dsm_pass2(*ops, lse_r, lse_c)
+    err_lse = err_max = 0.0
+    agree = 1.0
+    plain_ms = None
+    for b in range(shape["b"]):
+        one = [x[b:b + 1] for x in ops]
+        mb0, mb1 = m0[b:b + 1], m1[b:b + 1]
+        pr, pc = K.dsm_pass1_plain(*one)
+        err_lse = max(err_lse, (lse_r[b:b + 1] - pr)[mb0].abs().max().item(),
+                      (lse_c[b:b + 1] - pc)[mb1].abs().max().item())
+        del pr, pc
+        p_rmax, p_rarg, p_cmax, p_carg = K.dsm_pass2_plain(
+            *one, lse_r[b:b + 1], lse_c[b:b + 1])
+        err_max = max(err_max,
+                      (rmax[b:b + 1] - p_rmax)[mb0].abs().max().item(),
+                      (cmax[b:b + 1] - p_cmax)[mb1].abs().max().item())
+        agree = min(agree,
+                    (rarg[b:b + 1] == p_rarg)[mb0].float().mean().item(),
+                    (carg[b:b + 1] == p_carg)[mb1].float().mean().item())
+        del p_rmax, p_rarg, p_cmax, p_carg
+        if b == 0:
+            plain_ms = dict(
+                dsm_pass1=cuda_ms(lambda: K.dsm_pass1_plain(*one), 2),
+                dsm_pass2=cuda_ms(lambda: K.dsm_pass2_plain(
+                    *one, lse_r[:1], lse_c[:1]), 2))
+        torch.cuda.empty_cache()
+    check(err_lse <= 2e-3, "1600 px B=8 dsm_pass1 vs plain", err_lse)
+    check(agree >= 0.995, "1600 px B=8 argmax agreement", agree)
+    out = dict(shape=shape, lse_max_abs_err=err_lse,
+               argmax_max_abs_err=err_max, arg_agree=agree)
+    for name, fn, pass2, err in (
+            ("dsm_pass1", lambda: K.dsm_pass1(*ops), False, err_lse),
+            ("dsm_pass2", lambda: K.dsm_pass2(*ops, lse_r, lse_c), True,
+             err_max)):
+        bound_ms, bound_by = bound(shape, pass2)
+        ms = cuda_ms(fn, 5)
+        out[name] = dict(ms=ms, plain_ms_one_pair=plain_ms[name],
+                         bound_ms=bound_ms, bound_by=bound_by,
+                         share_of_bound=bound_ms / ms, max_abs_err=err)
+    return out
+
+
+def _check_eval_gates(got, ref, truth_poses):
+    """Hold E1 (eval-dataset, triangulation mode, on the card) to the JAX
+    CLI's eval-dataset on the same files."""
+    check(sorted(got["scenes"]) == sorted(ref["scenes"]), "eval: scenes",
+          sorted(got["scenes"]))
+    for s, r in ref["scenes"].items():
+        _check_model_gates(got["scenes"][s], r, f"eval {s}")
+        e = truth_poses[s]
+        check(e["n_images"] == EVAL_VIEWS and e["qvec"] <= 1e-5
+              and e["tvec"] <= 1e-5, "eval: poses moved", s, e)
+    for g in ("all", "3bag", "per_scene"):
+        check(without_wall(got["metrics"])[g]
+              == without_wall(ref["metrics"])[g], "eval: metrics.txt", g,
+              got["metrics"][g], ref["metrics"][g])
+
+
+def eval_phase():
+    """The eval-dataset verb on the card (see the section comment): E1
+    in process, E2 its isolated rerun, E3 the first scene at 1600 px through
+    both kernels, and both passes at 1600 px, B = 8; full report in
+    build/smoke_eval/eval.json."""
+    import dataclasses
+    import shutil
+
+    from detectorfreesfm_tpu_torch import cli, pipeline
+    from detectorfreesfm_tpu_torch.data.h5io import stored_path
+    from detectorfreesfm_tpu_torch.eval.pointcloud import (
+        accuracy_completeness,
+    )
+    from detectorfreesfm_tpu_torch.match.engine import PairMatchingEngine
+    from detectorfreesfm_tpu_torch.ops import fused_dsm
+
+    t_phase = time.time()
+    work = os.path.join(REPO, "build", "smoke_eval")
+    shutil.rmtree(work, ignore_errors=True)
+    dataset = os.path.join(work, "dataset")
+    t0 = time.time()
+    written = write_eval_dataset(dataset)
+    write_s = time.time() - t0
+    scene0 = EVAL_SCENES[0][0]
+    report = dict(write_dataset_s=write_s)
+
+    # E1: the dataset in triangulation mode, in this process, at the
+    # verb's defaults (832 px: --fused auto takes the dense path).
+    out1 = os.path.join(work, "e1")
+    for k in fused_dsm.launches:
+        fused_dsm.launches[k] = 0
+    got1, run1 = run_eval_dataset(cli.main, dataset, out1, *EVAL_ARGS)
+    e1_launches = dict(fused_dsm.launches)
+    poses1 = {s: pose_errors(os.path.join(out1, s, "colmap_refined"),
+                             os.path.join(dataset, s)) for s in written}
+    report["e1"] = dict(run1, launches=e1_launches, poses=poses1,
+                        metrics=got1["metrics"],
+                        n_points={s: g["result"].get("n_points")
+                                  for s, g in got1["scenes"].items()})
+
+    # E2: the same dataset and output with every scene in a subprocess;
+    # each must resume from its stored matches and models.
+    stores = [stored_path(p) for s in written
+              for p in pipeline.match_stores(os.path.join(out1, s))]
+    stores += [os.path.join(out1, s, "colmap_refined", "images.bin")
+               for s in written]
+    mtimes = [os.path.getmtime(p) for p in stores]
+    got2, run2 = run_eval_dataset(cli.main, dataset, out1, *EVAL_ARGS,
+                                  "--isolate-scenes", "--scene-timeout",
+                                  "600")
+    rewritten = [p for p, m in zip(stores, mtimes)
+                 if os.path.getmtime(p) != m]
+    report["e2"] = dict(run2, rewritten=rewritten)
+
+    # E3: the first scene at 1600 px, the ETH3D protocol, through both
+    # kernels (--fused auto on the card above 12 000 coarse tokens).
+    out3 = os.path.join(work, "e3_1600px")
+    scene_dir = os.path.join(dataset, scene0)
+    for k in fused_dsm.launches:
+        fused_dsm.launches[k] = 0
+    pipeline._ENGINE_CACHE.clear()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    got3, run3 = run_reconstruct(
+        cli.main, scene_dir, out3, "--triangulation", "--known-intrinsics",
+        "--img-resize", str(ETH3D_RESIZE), "--fused", "auto")
+    torch.cuda.synchronize()
+    e3_launches = dict(fused_dsm.launches)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    (_key, engine3), = pipeline._ENGINE_CACHE.items()
+    names = written[scene0][0]
+    image_dir = os.path.join(scene_dir, "images")
+    warm_s, _runs = _match_timing(engine3, image_dir, names, repeats=1)
+    poses3 = pose_errors(os.path.join(out3, "colmap_refined"), scene_dir)
+
+    # One pair at 1600 px through the engine at B = 1, fused against
+    # dense (whose (L, S) matrices fit at one pair only).
+    pipeline._ENGINE_CACHE.clear()
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    pair = (names[0], names[1])
+    rows = {}
+    for fused in (True, False):
+        eng = PairMatchingEngine(
+            dataclasses.replace(engine3.cfg, batch_size=1,
+                                fused_matching=fused),
+            params=engine3.model.state_dict(), device="cuda")
+        imgs = eng.load_images({n: os.path.join(image_dir, n) for n in pair})
+        rows[fused] = row_set(eng.match_pairs([pair], imgs)[pair])
+        del eng
+        torch.cuda.empty_cache()
+    del engine3
+    iou_1600 = iou(rows[True], rows[False])
+    iou_s = time.time() - t0
+
+    # Accuracy / completeness of both scene-0 models against the true
+    # surface, on the card; E3's also on the CPU.
+    surface = true_surface(EVAL_SCENES[0][1])
+    pts3 = model_points(os.path.join(out3, "colmap_refined"))
+    pts1 = model_points(os.path.join(out1, scene0, "colmap_refined"))
+    t0 = time.time()
+    pc3 = accuracy_completeness(pts3, surface, PC_TOLERANCES)
+    pc_card_s = time.time() - t0
+    pc1 = accuracy_completeness(pts1, surface, PC_TOLERANCES)
+    t0 = time.time()
+    pc3_cpu = accuracy_completeness(pts3, surface, PC_TOLERANCES,
+                                    device="cpu")
+    pc_cpu_s = time.time() - t0
+    report["e3"] = dict(
+        run3, launches=e3_launches, batches=-(-len(names) * (len(names) - 1)
+                                             // 2 // RECON_BATCH),
+        max_memory_allocated_gib=peak_gib, warm_match_s=warm_s,
+        poses=poses3, n_points=got3["result"].get("n_points"),
+        result=got3["result"], refined=got3["refined"],
+        iou_fused_vs_dense_1600px_b1=iou_1600, pair=list(pair),
+        iou_s=iou_s,
+        surface_points=len(surface), pointcloud_1600px=pc3,
+        pointcloud_832px=pc1, pointcloud_1600px_cpu=pc3_cpu,
+        pointcloud_card_s=pc_card_s, pointcloud_cpu_s=pc_cpu_s)
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    report["kernels_1600px_b8"] = check_kernels_1600_b8()
+    report["kernels_1600px_b8_s"] = time.time() - t0
+    report["eval_s"] = time.time() - t_phase
+    report["got"], report["jax"] = got1, JAX_EVAL
+    with open(os.path.join(work, "eval.json"), "w") as f:
+        json.dump(report, f, indent=1, default=float)
+
+    check(JAX_EVAL is not None, "JAX_EVAL is not recorded")
+    _check_eval_gates(got1, JAX_EVAL, poses1)
+    check(e1_launches == {"dsm_pass1": 0, "dsm_pass2": 0},
+          "E1 (832 px, --fused auto) launched the kernels", e1_launches)
+    check(without_wall(got2["metrics"]) == without_wall(got1["metrics"]),
+          "E2 metrics.txt differs from E1's", got2["metrics"],
+          got1["metrics"])
+    check(not rewritten, "E2 matched or refined again", rewritten)
+    n3 = report["e3"]["batches"]
+    check(e3_launches == {"dsm_pass1": n3, "dsm_pass2": n3},
+          "E3 kernel launches", e3_launches, n3)
+    check(got3["result"]["status"] == "ok"
+          and got3["result"]["refine_iterations_completed"] == 2,
+          "E3 status", got3["result"])
+    check(poses3["n_images"] == EVAL_VIEWS and poses3["qvec"] <= 1e-5
+          and poses3["tvec"] <= 1e-5, "E3 poses moved", poses3)
+    check(iou_1600 >= 0.99, "E3 fused vs dense IoU at 1600 px", iou_1600)
+    mid = f"accuracy@{PC_TOLERANCES[1]}"
+    check(pc3[mid] >= pc1[mid] - 0.02, "E3 accuracy below 832 px's",
+          pc3[mid], pc1[mid])
+    check(all(abs(pc3[k] - pc3_cpu[k]) <= 1e-6 for k in pc3),
+          "accuracy_completeness card vs CPU", pc3, pc3_cpu)
+    return {k: v for k, v in report.items() if k not in ("got", "jax")}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2577,6 +3110,10 @@ def main():
     train = train_phase()
     emit({"phase": "train", **train})
 
+    ev = eval_phase()
+    emit({"phase": "eval", **ev})
+    k1600 = ev["kernels_1600px_b8"]
+
     replaces = {
         "dsm_pass1": "detectorfreesfm_tpu/ops/pallas_dsm.py:98 (_pass1_kernel)",
         "dsm_pass2": "detectorfreesfm_tpu/ops/pallas_dsm.py:160 "
@@ -2597,12 +3134,18 @@ def main():
                 "reconstruct_c": recon["run_c"]["launches"][kname],
                 **{f"train_{n}": g["launches"][kname]
                    for n, g in train["verbs"].items()},
-                "train_serve": train["serve"]["launches"][kname]},
+                "train_serve": train["serve"]["launches"][kname],
+                "eval_e1": ev["e1"]["launches"][kname],
+                "eval_e3_1600px": ev["e3"]["launches"][kname]},
             "shape": verb_k["shape"],
             "max_abs_err": k["max_abs_err"], "ms": k["ms"],
             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
             "bound_by": k["bound_by"], "library_ms": None,
-            "ms_at_main_shape": main_k[kname]["ms"]})
+            "ms_at_main_shape": main_k[kname]["ms"],
+            "shape_1600px_b8": k1600["shape"],
+            "ms_at_1600px_b8": k1600[kname]["ms"],
+            "bound_ms_at_1600px_b8": k1600[kname]["bound_ms"],
+            "max_abs_err_at_1600px_b8": k1600[kname]["max_abs_err"]})
     print(smi)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

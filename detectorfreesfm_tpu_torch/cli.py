@@ -1,13 +1,17 @@
-"""Command-line entry: reconstruct one scene, or train, on the GPU.
+"""Command-line entry: reconstruct scenes, evaluate datasets, or train, on
+the GPU.
 
-Port of the `reconstruct` verb and the four training verbs of the JAX
-package's cli.py, with every option of its parsers and the same defaults,
-plus `--device` (default cuda; cpu is for tests) and, on the training
-verbs, `--log-json PATH` (one JSON line per step: loss, gradient norm,
-seconds):
+Port of the JAX package's cli.py: the `reconstruct` and `eval-dataset`
+verbs and the four training verbs, with every option of their parsers and
+the same defaults, plus `--device` (default cuda; cpu is for tests) and,
+on the training verbs, `--log-json PATH` (one JSON line per step: loss,
+gradient norm, seconds):
 
   python -m detectorfreesfm_tpu_torch.cli reconstruct --images DIR --output DIR
   python -m detectorfreesfm_tpu_torch.cli reconstruct --scene DIR --output DIR
+  python -m detectorfreesfm_tpu_torch.cli reconstruct --scene DIR --output DIR \
+      --triangulation --known-intrinsics --img-resize 1600
+  python -m detectorfreesfm_tpu_torch.cli eval-dataset --dataset DIR --output DIR
   python -m detectorfreesfm_tpu_torch.cli train --data DIR --output DIR
   python -m detectorfreesfm_tpu_torch.cli train-matcher --data DIR --output DIR [--fine]
   python -m detectorfreesfm_tpu_torch.cli train-matcher-selfsup --images DIR --output CKPT
@@ -25,7 +29,14 @@ JAX verb's keys it says how refinement ended (`refine_iterations_completed`,
 `refine_error`); where a fault of the card stopped refinement, the status
 is "refine_failed" and the exit code 1, though the models are written.
 
-`eval-dataset` is not ported yet (ROADMAP item 13).
+`--triangulation` (with --scene) keeps the scene's poses/ fixed and only
+triangulates and refines structure: the ETH3D protocol, at --img-resize
+1600, where `--fused auto` takes the fused dual-softmax kernels.
+`eval-dataset` runs every scene dir of --dataset (each holding images/),
+prints one JSON line per scene and writes the aggregated metrics.txt
+(pose AUCs and the registered ratio, per IMC bag with --imc-bags);
+--isolate-scenes runs each scene in a subprocess of the `reconstruct`
+verb, with one resuming retry after a crash or a --scene-timeout.
 """
 
 from __future__ import annotations
@@ -124,38 +135,35 @@ def _run_scene(args) -> dict:
     if bs is None:
         bs = 8 if dev.type == "cuda" else 1
     arch = getattr(args, "matcher_arch", "loftr")
-    try:
-        cfg = PipelineConfig(
-            matcher=arch,
-            img_resize=args.img_resize,
-            match_threshold=args.match_threshold,
-            match_type=getattr(args, "match_type", "coarse_only"),
-            round_matches_ratio=getattr(args, "round_matches_ratio", None),
-            fused_matching=fused,
-            batch_size=bs,
-            n_refine_iters=args.refine_iters,
-            refine=RefineConfig(**refine_kw),
-            triangulation_mode=args.triangulation,
-            pair_mode=args.pair_mode,
-            n_images=args.n_images,
-            redo_matching=args.redo,
-            redo_sfm=args.redo,
-            redo_refine=args.redo,
-            compute_dtype=args.dtype,
-            mapper=MapperConfig(
-                camera_model=getattr(args, "camera_model",
-                                     "pinhole").upper(),
-                # Known GT intrinsics stay fixed in BA; focal refinement
-                # only makes sense when focals were guessed.
-                # --known-intrinsics forces fixed.
-                refine_focal=(intrins is None) and not args.known_intrinsics,
-                min_model_size=args.min_model_size,
-                abs_pose_min_num_inliers=args.min_inliers,
-                min_tri_angle_deg=args.min_tri_angle,
-            ),
-        )
-    except NotImplementedError as e:
-        raise SystemExit(str(e)) from None
+    cfg = PipelineConfig(
+        matcher=arch,
+        img_resize=args.img_resize,
+        match_threshold=args.match_threshold,
+        match_type=getattr(args, "match_type", "coarse_only"),
+        round_matches_ratio=getattr(args, "round_matches_ratio", None),
+        fused_matching=fused,
+        batch_size=bs,
+        n_refine_iters=args.refine_iters,
+        refine=RefineConfig(**refine_kw),
+        triangulation_mode=args.triangulation,
+        pair_mode=args.pair_mode,
+        n_images=args.n_images,
+        redo_matching=args.redo,
+        redo_sfm=args.redo,
+        redo_refine=args.redo,
+        compute_dtype=args.dtype,
+        mapper=MapperConfig(
+            camera_model=getattr(args, "camera_model",
+                                 "pinhole").upper(),
+            # Known GT intrinsics stay fixed in BA; focal refinement
+            # only makes sense when focals were guessed.
+            # --known-intrinsics forces fixed.
+            refine_focal=(intrins is None) and not args.known_intrinsics,
+            min_model_size=args.min_model_size,
+            abs_pose_min_num_inliers=args.min_inliers,
+            min_tri_angle_deg=args.min_tri_angle,
+        ),
+    )
 
     matcher_params = None
     need_matching = args.redo or not matches_stored(args.output)
@@ -209,6 +217,7 @@ def _run_scene(args) -> dict:
     rec = reconstruct_scene(
         image_dir, args.output, cfg,
         intrinsics=intrins,
+        poses=poses if args.triangulation else None,
         matcher_params=matcher_params,
         refiner_params=refiner_params,
         verbose=args.verbose,
@@ -239,6 +248,96 @@ def cmd_reconstruct(args) -> int:
     return 0 if result.get("status") == "ok" else 1
 
 
+def _run_isolated(ns, scene: str, timeout_s: int) -> dict:
+    """One scene of eval-dataset in a subprocess of the `reconstruct` verb,
+    so that a native crash or a fault of the card ends only that scene.
+    The full option namespace goes to <output>/_scene_args.json (a value
+    that is not JSON raises), so the child runs exactly the parent's
+    configuration. A timeout or a crash is retried once, and the retry
+    resumes from the stage artifacts; a clean result line, even
+    status=failed, is final."""
+    import subprocess
+
+    payload = {}
+    for k, v in vars(ns).items():
+        if k in ("fn", "isolate_scenes", "args_json"):
+            continue
+        try:
+            json.dumps(v)
+        except TypeError:
+            raise SystemExit(
+                f"--isolate-scenes cannot serialize option {k}={v!r} for "
+                f"the child process") from None
+        payload[k] = v
+    os.makedirs(ns.output, exist_ok=True)
+    args_path = os.path.join(ns.output, "_scene_args.json")
+    with open(args_path, "w") as f:
+        json.dump(payload, f, indent=1)
+    cmd = [sys.executable, "-m", "detectorfreesfm_tpu_torch.cli",
+           "reconstruct", "--output", ns.output, "--args-json", args_path]
+    # The child imports this checkout's package wherever it is started.
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (root, os.environ.get("PYTHONPATH")) if p))
+    last_err = None
+    for attempt in range(2):
+        try:
+            out = subprocess.run(cmd, capture_output=True, text=True,
+                                 timeout=timeout_s, env=env)
+        except subprocess.TimeoutExpired:
+            last_err = f"timeout after {timeout_s}s"
+            print(f"scene {scene}: {last_err} (attempt {attempt})",
+                  file=sys.stderr)
+            continue
+        try:
+            return json.loads(out.stdout.strip().splitlines()[-1])
+        except (ValueError, IndexError):
+            pass
+        last_err = out.stderr[-500:] or f"rc={out.returncode}"
+        if out.returncode != 0:
+            print(f"scene {scene}: crashed attempt {attempt}",
+                  file=sys.stderr)
+    return {"status": "failed", "error": last_err}
+
+
+def cmd_eval_dataset(args) -> int:
+    """Every scene of a dataset, and the aggregated metrics.txt (with IMC
+    bag grouping under --imc-bags)."""
+    from .device import resolve_device
+    from .parallel.orchestrate import run_eval_scenes
+
+    # A missing card fails the run here, not each scene in the isolation
+    # that turns a scene's exception into a failed scene.
+    resolve_device(args.device)
+    scenes = sorted(
+        d for d in os.listdir(args.dataset)
+        if os.path.isdir(os.path.join(args.dataset, d, "images"))
+    )
+    if args.scene_list:
+        wanted = set(args.scene_list.split(","))
+        scenes = [s for s in scenes if s in wanted]
+    if args.exclude_scenes:
+        banned = set(args.exclude_scenes.split(","))
+        scenes = [s for s in scenes if s not in banned]
+    if args.n_scenes:
+        scenes = scenes[: args.n_scenes]
+
+    def scene_fn(s):
+        ns = argparse.Namespace(**vars(args))
+        ns.scene = os.path.join(args.dataset, s)
+        ns.images = None
+        ns.output = os.path.join(args.output, s)
+        if args.isolate_scenes:
+            return _run_isolated(ns, s, args.scene_timeout or 7200)
+        return _run_scene(ns)
+
+    # Scenes stride over the processes of an initialised torch.distributed
+    # group (one process otherwise); process 0 writes metrics.txt.
+    run_eval_scenes(scenes, scene_fn, args.output, imc_bags=args.imc_bags,
+                    title=os.path.basename(args.dataset))
+    return 0
+
+
 def _datasets(args):
     """The scene indexes of --data, sharded over the processes of an
     initialised torch.distributed group (one process otherwise)."""
@@ -247,14 +346,12 @@ def _datasets(args):
     from .data.megadepth import (MegaDepthTupleDataset, SceneBalancedSampler,
                                  load_scene_index, shard_scenes)
 
+    from .parallel.orchestrate import process_rank_count
+
     scene_files = sorted(glob.glob(os.path.join(args.data, "*.npz")))
     if not scene_files:
         return None, None, 1
-    rank, world = 0, 1
-    import torch.distributed as dist
-
-    if dist.is_available() and dist.is_initialized():
-        rank, world = dist.get_rank(), dist.get_world_size()
+    rank, world = process_rank_count()
     scene_files = shard_scenes(scene_files, rank, world)
     datasets = [MegaDepthTupleDataset(load_scene_index(p),
                                       img_size=args.img_resize)
@@ -435,7 +532,9 @@ def main(argv=None) -> int:
                         dest="reregister_every",
                         help="attempt re-registration every N refine iters")
         sp.add_argument("--triangulation", action="store_true",
-                        help="known-pose triangulation (not ported yet)")
+                        help="known-pose triangulation: the scene's poses/ "
+                             "stay fixed, only structure is estimated and "
+                             "refined (needs --scene)")
         sp.add_argument("--pair-mode", default="exhaustive",
                         dest="pair_mode",
                         choices=["exhaustive", "sequential"])
@@ -489,6 +588,27 @@ def main(argv=None) -> int:
                     help="load the FULL option namespace from a JSON file")
     add_common(sr)
     sr.set_defaults(fn=cmd_reconstruct)
+
+    se = sub.add_parser("eval-dataset", help="reconstruct + eval all scenes")
+    se.add_argument("--dataset", required=True)
+    se.add_argument("--n-scenes", type=int, default=None, dest="n_scenes")
+    se.add_argument("--scene-list", default=None, dest="scene_list",
+                    help="comma-separated scene names to include")
+    se.add_argument("--exclude-scenes", default=None, dest="exclude_scenes")
+    se.add_argument("--isolate-scenes", action="store_true",
+                    dest="isolate_scenes",
+                    help="run each scene in a subprocess so native crashes"
+                         " or faults of the card kill only that scene")
+    se.add_argument("--scene-timeout", type=int, default=None,
+                    dest="scene_timeout",
+                    help="per-scene wall limit (s) for --isolate-scenes; "
+                         "a timed-out or crashed scene is retried ONCE, "
+                         "resuming from its persisted stage artifacts. "
+                         "Default 7200.")
+    se.add_argument("--imc-bags", action="store_true", dest="imc_bags",
+                    help="group metrics by IMC Nbag markers in scene names")
+    add_common(se)
+    se.set_defaults(fn=cmd_eval_dataset)
 
     st = sub.add_parser("train", help="train the multiview refiner")
     st.add_argument("--data", required=True, help="dir of scene .npz indexes")

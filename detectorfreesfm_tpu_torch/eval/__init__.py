@@ -1,1 +1,2 @@
-"""Evaluation: the pairwise relative-pose AUC protocol."""
+"""Evaluation: the pairwise relative-pose AUC protocol, cross-scene
+aggregation and point-cloud accuracy/completeness."""

@@ -15,9 +15,17 @@ exist (redo_* flags force re-runs), so scenes are resumable:
                               cameras_points.ply (best-effort)
   stage_times.json            seconds of match, coarse_sfm, io and refine
 
-From-scratch SfM only: the known-pose triangulation mode is not ported
-(ROADMAP item 14). Every entry point takes `device=` (None means CUDA, and
-raises without it; tests pass "cpu").
+Two modes:
+
+  * from-scratch SfM: coarse matching -> incremental mapper -> iterative
+    multiview refinement;
+  * triangulation (known poses, the ETH3D protocol): poses and intrinsics
+    come from txt dirs ({img}.txt holding a 4x4 w2c matrix); cameras stay
+    fixed and only structure is estimated (verified matches, tracks, DLT,
+    structure-only BA) and refined.
+
+Every entry point takes `device=` (None means CUDA, and raises without it;
+tests pass "cpu").
 """
 
 from __future__ import annotations
@@ -75,7 +83,8 @@ class PipelineConfig:
     redo_matching: bool = False
     redo_sfm: bool = False
     redo_refine: bool = False
-    triangulation_mode: bool = False  # not ported (ROADMAP item 14)
+    triangulation_mode: bool = False  # known poses (reconstruct_scene's
+                                      # `poses`) stay fixed
     n_images: Optional[int] = None  # debug clamp (reference base.yaml:33)
     # Detector-free keypoints live on an 8px grid at *network* resolution;
     # mapper thresholds are original-resolution pixels. When images are
@@ -83,12 +92,6 @@ class PipelineConfig:
     # and fixed thresholds starve RANSAC: scale them by the mean resize
     # factor.
     auto_scale_thresholds: bool = True
-
-    def __post_init__(self):
-        if self.triangulation_mode:
-            raise NotImplementedError(
-                "triangulation_mode (known-pose triangulation) is not ported "
-                "yet (ROADMAP item 14)")
 
     def engine_config(self) -> EngineConfig:
         fine = self.match_type == "coarse_fine"
@@ -185,6 +188,7 @@ def reconstruct_scene(
     output_dir: str,
     cfg: PipelineConfig = PipelineConfig(),
     intrinsics: Optional[Dict[str, np.ndarray]] = None,
+    poses: Optional[Dict[str, Tuple[np.ndarray, np.ndarray]]] = None,
     matcher_params=None,
     refiner_params=None,
     verbose: bool = False,
@@ -193,8 +197,9 @@ def reconstruct_scene(
 ) -> Optional[Reconstruction]:
     """Full pipeline for one scene on `device`. Returns the refined
     Reconstruction (and writes colmap_coarse/ + colmap_refined/ under
-    output_dir). The JAX signature's `poses` feeds only the triangulation
-    mode, which is not ported, so it is left out.
+    output_dir). `poses` ({image name: (qvec, tvec)}, world-to-camera)
+    feeds the triangulation mode, which requires it; a stored
+    colmap_coarse/ is reused in either mode.
 
     Pass `info={}` to receive how refinement ended, which the JAX package
     only prints: `refine_iterations_completed`, `refine_error` (the caught
@@ -202,6 +207,13 @@ def reconstruct_scene(
     fault of the card). A run that reuses a stored colmap_refined/ counts
     the model_refined_{i}/ it finds and knows no error."""
     dev = resolve_device(device)
+    coarse_dir = os.path.join(output_dir, "colmap_coarse")
+    coarse_stored = (not cfg.redo_sfm and os.path.isdir(coarse_dir)
+                     and bool(os.listdir(coarse_dir)))
+    if cfg.triangulation_mode and poses is None and not coarse_stored:
+        # Before any work (the JAX package raises this after matching).
+        raise ValueError("triangulation_mode requires poses: a scene dir "
+                         "with poses/ (4x4 world-to-camera matrices)")
     info = {} if info is None else info
     info.update(refine_iterations_completed=0, refine_error=None,
                 refine_device_error=False)
@@ -248,7 +260,6 @@ def reconstruct_scene(
             # Interop artifact only; never block reconstruction, but say so.
             print(f"warning: database.db export failed: {e!r}")
 
-    coarse_dir = os.path.join(output_dir, "colmap_coarse")
     mapper_cfg = cfg.mapper
     if cfg.auto_scale_thresholds:
         f = float(np.mean([max(w, h) for (w, h) in sizes.values()]))
@@ -266,14 +277,16 @@ def reconstruct_scene(
         )
     mapper = IncrementalMapper(mapper_cfg, device=dev)
     coarse_resumed = False
-    if (not cfg.redo_sfm and os.path.isdir(coarse_dir)
-            and os.listdir(coarse_dir)):
+    if coarse_stored:
         coarse_resumed = True
         cams, imgs, pts = colmap_io.read_model(coarse_dir)
         rec = Reconstruction.from_colmap(cams, imgs, pts)
         mapper.names = sorted(keypoints)
         mapper.name_to_id = {im.name: i for i, im in rec.images.items()}
         _rebuild_mapper_tracks(mapper, rec, keypoints, match_indices)
+    elif cfg.triangulation_mode:
+        rec = _triangulate_known_poses(
+            mapper, keypoints, match_indices, sizes, intrinsics, poses)
     else:
         rec = mapper.run(
             keypoints, match_indices, sizes, intrinsics, verbose=verbose)
@@ -325,7 +338,10 @@ def reconstruct_scene(
             rec.cameras[im.camera_id].rescale(
                 1.0 / li.scale[0], 1.0 / li.scale[1])
         rcfg = dataclasses.replace(
-            cfg.refine, n_iters=cfg.n_refine_iters, save_iters_to=output_dir)
+            cfg.refine, n_iters=cfg.n_refine_iters, save_iters_to=output_dir,
+            # Known-pose triangulation keeps the poses frozen through
+            # refinement (the reference's fix_all_images)
+            fix_all_poses=cfg.triangulation_mode or cfg.refine.fix_all_poses)
         loop_info: dict = {}
         refine_reconstruction(
             rec, images_by_id, params=refiner_params, cfg=rcfg,
@@ -394,6 +410,48 @@ def _rebuild_mapper_tracks(mapper, rec, keypoints, match_indices):
             tid = mapper.kpt_track.get(img_id, {}).get(kpt)
             if tid is not None:
                 mapper.track_pid[tid] = pid
+
+
+def _triangulate_known_poses(
+    mapper: IncrementalMapper, keypoints, match_indices, sizes,
+    intrinsics, poses,
+) -> Optional[Reconstruction]:
+    """Known-pose triangulation (the reference's point_triangulator): fix
+    all cameras, verify pairs, build tracks, triangulate, BA structure-only,
+    filter."""
+    from .sfm.tracks import build_tracks
+
+    cfg = mapper.cfg
+    rec = mapper._setup(keypoints, sizes, intrinsics)
+    for n, (q, t) in poses.items():
+        if n in mapper.name_to_id:
+            rec.set_pose(mapper.name_to_id[n], q, t)
+    verified = mapper.verify_pairs(rec, match_indices)
+    if not verified:
+        return None
+    n_kpts = {mapper.name_to_id[n]: len(keypoints[n]) for n in mapper.names}
+    vm = {pair: v["matches"] for pair, v in verified.items()}
+    tracks = build_tracks(n_kpts, vm)
+    mapper.tracks = tracks
+    mapper.track_pid = np.full(len(tracks), -1, np.int64)
+    mapper.kpt_track = {}
+    for tid, t in enumerate(tracks):
+        for (img_id, kpt) in t.observations:
+            mapper.kpt_track.setdefault(img_id, {})[kpt] = tid
+    tri = mapper._triangulate_tracks(
+        rec, tracks, range(len(tracks)),
+        cfg.min_tri_angle_deg, cfg.filter_max_reproj_error)
+    for tid, (xyz, obs) in tri.items():
+        pid = rec.add_point(xyz, obs)
+        if pid >= 0:
+            mapper.track_pid[tid] = pid
+    # Structure-only BA: every camera fixed completely (gauge="full"); with
+    # exactly 2 known-pose cameras the similarity gauge would re-optimise
+    # the second pose.
+    mapper.global_ba(rec, fixed_ids=set(rec.registered_images), gauge="full")
+    mapper.filter_points(rec, cfg.filter_max_reproj_error,
+                         cfg.min_tri_angle_deg)
+    return rec
 
 
 def evaluate_scene_poses(

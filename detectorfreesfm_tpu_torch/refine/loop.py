@@ -10,9 +10,12 @@ Port of the JAX package's refine/loop.py, on one device. Per iteration:
      chunk i+1;
   2. write refined keypoints back into the reconstruction;
   3. geometry refinement: retriangulation, track merge and completion,
-     global BA with the farthest registered pair as gauge, and
-     reprojection/angle filtering at per-iteration thresholds [3, 2, 1.5] px;
-  4. re-register dropped images on even iterations.
+     global BA with the farthest registered pair as gauge (with
+     `fix_all_poses`, the known-pose triangulation mode, structure-only BA
+     with every registered pose frozen), and reprojection/angle filtering
+     at per-iteration thresholds [3, 2, 1.5] px;
+  4. re-register dropped images on even iterations (not with
+     `fix_all_poses`).
 
 A failed iteration restores the model it started from and ends the loop
 (the reference's failure isolation). The failure is not hidden: pass
@@ -67,6 +70,10 @@ class RefineConfig:
     rereg_min_inlier_ratio: float = 0.1
     # Random refiner weights only perturb keypoints; tests opt in.
     allow_random_weights: bool = False
+    # Triangulation mode: known poses stay frozen through refinement BA
+    # (the reference's fix_all_images when refining 3D points only) and
+    # PnP re-registration is skipped.
+    fix_all_poses: bool = False
     save_iters_to: Optional[str] = None  # write model_refined_{i}/ per
                                          # completed iteration
 
@@ -277,7 +284,10 @@ def _refine_iteration(rec, images_dev, image_order, params, cfg, mapper,
     n_completed = (
         m.complete_tracks(rec, thr) if hasattr(m, "kpt_track") else 0
     )
-    m.global_ba(rec, fixed_ids=_farthest_pair(rec))
+    if cfg.fix_all_poses:  # triangulation mode: structure-only BA
+        m.global_ba(rec, fixed_ids=set(rec.registered_images), gauge="full")
+    else:
+        m.global_ba(rec, fixed_ids=_farthest_pair(rec))
     n_rm = m.filter_points(rec, thr, cfg.min_tri_angle_deg)
     geometry_s = time.perf_counter() - t0
     if verbose:
@@ -287,7 +297,8 @@ def _refine_iteration(rec, images_dev, image_order, params, cfg, mapper,
     # Re-registration of dropped images (even iterations), relaxed thresholds
     reregistered = []
     t0 = time.perf_counter()
-    if (it % cfg.reregister_every) == 0 and mapper is not None:
+    if ((it % cfg.reregister_every) == 0 and mapper is not None
+            and not cfg.fix_all_poses):
         for img_id in list(rec.images):
             if not rec.images[img_id].registered:
                 ok = mapper._try_register(

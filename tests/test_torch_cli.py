@@ -74,12 +74,12 @@ def test_verb_equals_jax_cli(tmp_path):
     (["--matcher-arch", "aspan", "--matcher-ckpt", "x.msgpack"],
      "ROADMAP item 15"),
     (["--dtype", "bfloat16"], "ROADMAP item 12"),
-    (["--triangulation"], "ROADMAP item 14"),
+    (["--matcher-arch", "matchformer", "--matcher-ckpt", "x.msgpack"],
+     "ROADMAP item 15"),
 ])
 def test_verb_refuses_what_is_not_ported(tmp_path, extra, match):
-    """Another matcher, bf16 compute and the known-pose triangulation mode
-    raise before any work, naming their ROADMAP item; none runs the fp32
-    LoFTR in their place."""
+    """Another matcher and bf16 compute raise before any work, naming
+    their ROADMAP item; none runs the fp32 LoFTR in their place."""
     scene = tmp_path / "scene"
     chip_smoke.write_scene(str(scene), size=64, n_views=2)
     with pytest.raises(SystemExit, match=match):
@@ -95,8 +95,8 @@ def test_engine_and_pipeline_configs_refuse_what_is_not_ported():
         EngineConfig(matcher="matchformer")
     with pytest.raises(NotImplementedError, match="item 12"):
         TP.PipelineConfig(compute_dtype="bfloat16").engine_config()
-    with pytest.raises(NotImplementedError, match="item 14"):
-        TP.PipelineConfig(triangulation_mode=True)
+    # known-pose triangulation is ported (tests/test_torch_eval_dataset.py)
+    assert TP.PipelineConfig(triangulation_mode=True).triangulation_mode
     cfg = TP.PipelineConfig(match_type="coarse_fine", fused_matching=True)
     assert cfg.engine_config() == EngineConfig(
         round_matches_ratio=4, fused_matching=True, fine_enabled=True)

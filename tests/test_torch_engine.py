@@ -292,6 +292,12 @@ assert os.path.exists(os.path.join(d, "out", "keypoints.h5.npz"))
 assert cli.main(["reconstruct", "--images", os.path.join(scene, "images"),
                  "--output", os.path.join(d, "out_cli"), "--device", "cpu",
                  "--refine-iters", "0", "--min-inliers", "15"]) == 0
+from detectorfreesfm_tpu_torch.eval import aggregate, pointcloud
+from detectorfreesfm_tpu_torch.parallel import orchestrate
+from detectorfreesfm_tpu_torch.sfm import model_import
+assert pointcloud.accuracy_completeness(
+    np.zeros((3, 3)), np.ones((4, 3)), device="cpu")["accuracy@0.01"] == 0.0
+assert orchestrate.allgather_objects({{"a": 1}}) == [{{"a": 1}}]
 import shutil
 shutil.rmtree(d)
 banned = ("jax", "jaxlib", "flax", "msgpack", "h5py", "PIL",
@@ -306,9 +312,10 @@ sys.exit(1 if bad else 0)
 def test_port_imports_no_jax_or_missing_packages():
     """In a fresh interpreter (conftest imports jax into this one), the
     port's forward on the CPU, every geometry, store and estimator module,
-    the mapper and one refinement iteration, and the scene pipeline and
-    the reconstruct verb (on PNG files, with h5py and PIL blocked and the
-    native image loader off), run once at a tiny size, pull in none of
+    the mapper and one refinement iteration, the scene pipeline and the
+    reconstruct verb (on PNG files, with h5py and PIL blocked and the
+    native image loader off), and the evaluation modules, run once at a
+    tiny size, pull in none of
     jax, flax, msgpack, h5py, PIL or the JAX package, and scipy only where
     merge_tracks needs it."""
     code = _IMPORT_PROBE.format(repo=REPO, weights=WEIGHTS)

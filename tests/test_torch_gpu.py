@@ -626,3 +626,156 @@ def test_matcher_trainer_step_on_the_card_equals_the_cpu(fine):
     for k in ("loss", "grad_norm"):
         assert abs(out["cuda"][k] - out["cpu"][k]) <= 1e-4 * abs(
             out["cpu"][k]), (k, out)
+
+
+def _clouds(seed=0):
+    """tests/test_torch_eval.py's scene-scale clouds: a true cloud and a
+    noisy reconstruction of half of it with far-away junk."""
+    rng = np.random.default_rng(seed)
+    gt = rng.uniform(-3, 3, (3000, 3)) + np.array([0.0, 0.0, 8.0])
+    rec = np.concatenate([
+        gt[:1500] + rng.normal(scale=0.03, size=(1500, 3)),
+        rng.uniform(20, 21, (200, 3))])
+    return rec, gt
+
+
+@pytest.mark.cuda
+def test_accuracy_completeness_on_the_card_equals_the_cpu():
+    """eval/pointcloud.py on the card (its default device) and on the CPU:
+    fractions within 1e-6 at three tolerances, NN distances within 1e-5,
+    with blocks that do not divide the cloud."""
+    _needs_cuda()
+    from detectorfreesfm_tpu_torch.eval import pointcloud
+
+    rec, gt = _clouds()
+    tols = (0.02, 0.05, 0.1)
+    card = pointcloud.accuracy_completeness(rec, gt, tols)
+    cpu = pointcloud.accuracy_completeness(rec, gt, tols, device="cpu")
+    assert card.keys() == cpu.keys()
+    for k in cpu:
+        assert abs(card[k] - cpu[k]) <= 1e-6, (k, card[k], cpu[k])
+    for q, r in ((rec, gt), (gt, rec)):
+        np.testing.assert_allclose(
+            pointcloud.nn_distances(q, r, block=1000),
+            pointcloud.nn_distances(q, r, block=1000, device="cpu"),
+            rtol=0, atol=1e-5)
+
+
+def _known_pose_scene(root, n_cams=4, n_pts=200, seed=77):
+    """tests/test_eval_dataset.py's triangulation scene (its generator
+    copied here without jax): cameras on an arc looking at a blob of
+    points, noisy projections with random dropout as cached matches, PNG
+    images, the true K and world-to-camera poses."""
+    from detectorfreesfm_tpu_torch.core.geometry import np_rotmat_to_quat
+    from detectorfreesfm_tpu_torch.data import png
+    from detectorfreesfm_tpu_torch.data.h5io import save_h5
+
+    rng = np.random.default_rng(seed)
+    pts = rng.uniform(-1.5, 1.5, (n_pts, 3)) + np.array([0, 0, 6.0])
+    K = np.array([[600.0, 0, 320.0], [0, 600.0, 240.0], [0, 0, 1.0]])
+    poses, uvs = [], []
+    for i in range(n_cams):
+        ang = (i - (n_cams - 1) / 2) * 0.35
+        eye = np.array([4.0 * np.sin(ang), 0.5 * np.sin(i),
+                        6.0 - 4.0 * np.cos(ang)])
+        z = np.array([0, 0, 6.0]) - eye
+        z /= np.linalg.norm(z)
+        x = np.cross([0.0, -1.0, 0.0], z)
+        x /= np.linalg.norm(x)
+        R = np.stack([x, np.cross(z, x), z])
+        t = -R @ eye
+        uv = ((pts @ R.T + t) / (pts @ R.T + t)[:, 2:]) @ K.T
+        poses.append((np_rotmat_to_quat(R), t))
+        uvs.append(uv[:, :2] + rng.normal(0, 0.4, (n_pts, 2)))
+    visible = rng.uniform(size=(n_cams, n_pts)) > 0.25
+    rng = np.random.default_rng(11)
+    kps, kpt_of_pt = {}, {}
+    for i in range(n_cams):
+        visible[i] &= ((uvs[i] > 0) & (uvs[i] < [640, 480])).all(1)
+        ids = np.flatnonzero(visible[i])
+        perm = rng.permutation(len(ids))
+        kps[f"im{i:02d}.png"] = uvs[i][ids][perm]
+        kpt_of_pt[i] = {int(ids[perm[k]]): k for k in range(len(ids))}
+    matches = {
+        f"im{i:02d}.png|im{j:02d}.png": np.array(
+            [[kpt_of_pt[i][int(p)], kpt_of_pt[j][int(p)]]
+             for p in np.flatnonzero(visible[i] & visible[j])],
+            np.int32).reshape(-1, 2)
+        for i in range(n_cams) for j in range(i + 1, n_cams)}
+    image_dir = os.path.join(root, "images")
+    os.makedirs(image_dir)
+    for n in kps:
+        png.write_png(os.path.join(image_dir, n),
+                      rng.integers(0, 255, (480, 640), dtype=np.uint8))
+    stores = {}
+    for out in ("cpu", "cuda"):
+        d = os.path.join(root, out)
+        os.makedirs(d)
+        save_h5(kps, os.path.join(d, "keypoints.h5"))
+        save_h5(matches, os.path.join(d, "matches.h5"))
+        stores[out] = d
+    return image_dir, stores, {n: K for n in kps}, {
+        f"im{i:02d}.png": poses[i] for i in range(n_cams)}
+
+
+@pytest.mark.cuda
+def test_known_pose_triangulation_on_the_card_equals_the_cpu(tmp_path):
+    """reconstruct_scene's triangulation mode (cached matches, true poses,
+    no refinement) on the card and on the CPU: the same point count, the
+    mean reprojection error within 1e-4 px, every pose its input within
+    1e-5."""
+    _needs_cuda()
+    from detectorfreesfm_tpu_torch import pipeline
+    from detectorfreesfm_tpu_torch.sfm.mapper import MapperConfig
+
+    image_dir, stores, intrins, poses = _known_pose_scene(str(tmp_path))
+    cfg = pipeline.PipelineConfig(
+        img_resize=640, n_refine_iters=0, triangulation_mode=True,
+        mapper=MapperConfig(abs_pose_min_num_inliers=10))
+    recs = {dev: pipeline.reconstruct_scene(
+        image_dir, stores[dev], cfg, intrinsics=intrins, poses=poses,
+        device=dev) for dev in ("cpu", "cuda")}
+    n = {dev: len(r.points) for dev, r in recs.items()}
+    assert n["cuda"] == n["cpu"] > 100, n
+    err = {dev: float(np.concatenate(list(
+        r.reprojection_errors().values())).mean())
+        for dev, r in recs.items()}
+    assert abs(err["cuda"] - err["cpu"]) <= 1e-4, err
+    for name, (q, t) in poses.items():
+        im = recs["cuda"].image_by_name(name)
+        np.testing.assert_allclose(im.qvec, q, rtol=0, atol=1e-5)
+        np.testing.assert_allclose(im.tvec, t, rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size,fused", [(832, False), (1600, True)])
+def test_fused_auto_takes_the_kernels_above_12k_tokens(tmp_path,
+                                                       monkeypatch, size,
+                                                       fused):
+    """The verb's --fused auto on the card: dense at 832 px (10 816 coarse
+    tokens), the kernels at 1600 px (40 000), at the card's batch of 8."""
+    _needs_cuda()
+    import contextlib
+    import io
+
+    from detectorfreesfm_tpu_torch import cli, pipeline
+    from detectorfreesfm_tpu_torch.sfm.reconstruction import Reconstruction
+
+    seen = {}
+
+    def fake_scene(image_dir, output_dir, cfg, info, **kw):
+        seen["cfg"] = cfg
+        info.update(refine_iterations_completed=0, refine_error=None,
+                    refine_device_error=False)
+        return Reconstruction()
+
+    monkeypatch.setattr(pipeline, "reconstruct_scene", fake_scene)
+    monkeypatch.setattr(pipeline, "matches_stored", lambda out: True)
+    image_dir, _stores, _K, _poses = _known_pose_scene(str(tmp_path))
+    with contextlib.redirect_stdout(io.StringIO()):
+        assert cli.main(["reconstruct", "--images", image_dir, "--output",
+                         str(tmp_path / "out"), "--img-resize", str(size),
+                         "--refine-iters", "0"]) == 0
+    ecfg = seen["cfg"].engine_config()
+    assert ecfg.fused_matching is fused and ecfg.batch_size == 8
+    assert ecfg.img_resize == size
