@@ -71,6 +71,25 @@ standard library, numpy, torch and the port. Phases, one JSON line each:
            ETH3D accuracy/completeness of the 832 and 1600 px models
            against the scene's true surface; both passes at 1600 px,
            B = 8; full report in build/smoke_eval/eval.json
+  bf16     the JAX package's bf16 compute path, on the files the
+           reconstruct and train phases wrote: both passes against their
+           plain versions on features rounded to bf16 (B = 8, 832 px);
+           main's 6 pairs with the matcher in bf16 (fused against dense
+           at IoU >= 0.95, valid matches and median epipolar error held
+           to the JAX engine's bf16 numbers, 3 launches of each pass);
+           run A with `--dtype bfloat16` held to the JAX CLI's own bf16
+           run on the same files (JAX_RECONSTRUCT_BF16, `python
+           tests/test_torch_pipeline.py --record --dtype bfloat16`) with
+           run A's gates; `train-matcher --fine` and
+           `train-matcher-selfsup` with `--dtype-train bfloat16`, 3 steps
+           each, their losses and gradient norms held to JAX's bf16
+           steps (JAX_TRAIN_BF16, `python tests/test_torch_train.py
+           --record --dtype bfloat16`): step 0 within twice JAX's own
+           bf16-fp32 gap, steps 1-2 as one vector within that gap in
+           relative norm (see _check_train_bf16), fp32 checkpoints read
+           back, 0 launches; reported: warm
+           pairs/s, device ms by kernel and training peak memory in bf16
+           beside fp32's; full report in build/smoke_bf16/bf16.json
 
 The build phase also builds the native image loader (g++, -ljpeg -lpng)
 and says whether it linked. Any failed check raises (non-zero exit). The
@@ -95,10 +114,12 @@ WEIGHTS = os.path.join(REPO, "weights", "demo_matcher_r5_bf16.msgpack")
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
 
-# The dense fp32 JAX engine on the CPU, same scene and settings, recorded
-# with `python tests/test_torch_engine.py --size 832` (PERF.md).
-JAX_TOTAL_VALID = 12288          # 2048 (the top-K capacity) on each pair
-JAX_MEDIAN_EPIPOLAR_PX = 1.0242514909205727
+# The dense JAX engine on the CPU, same scene and settings, by compute
+# dtype: (valid matches, median epipolar error in px), recorded with
+# `python tests/test_torch_engine.py --size 832 [--dtype bfloat16]`
+# (PERF.md). 12 288 is 2048 (the top-K capacity) on each pair.
+JAX_MAIN = {"float32": (12288, 1.0242514909205727),
+            "bfloat16": (12288, 1.0236274885146541)}
 
 MAIN_SHAPE = dict(b=2, l=10816, s=10816, c=256)
 # The verb's batch of 8 pairs at 832 px, the shape that the reconstruct
@@ -193,10 +214,15 @@ def bound(shape, pass2):
             "operations" if t_ops > t_bytes else "bytes")
 
 
-def check_kernels(shape, seed, timed):
+def check_kernels(shape, seed, timed, bf16=False):
+    """Both passes against their plain versions on features(seed, shape),
+    or with bf16=True on those features rounded to bf16, as the bf16
+    matcher hands them over (split_features upcasts; lo1 is then 0)."""
     from detectorfreesfm_tpu_torch.ops import fused_dsm as K
 
     f0, f1, m0, m1 = features(seed=seed, **shape)
+    if bf16:
+        f0, f1 = f0.bfloat16(), f1.bfloat16()
     ops = K.split_features(f0, f1, m0, m1, 0.1)
     out = {}
 
@@ -316,7 +342,10 @@ def profile_batch(engine, pairs, images):
                      for e in top])
 
 
-def main_path(params):
+def main_path(params, dtype="float32"):
+    """The 6 pairs through PairMatchingEngine with the kernels (batches of
+    2), held to the dense path and to the JAX engine of the same compute
+    dtype (JAX_MAIN)."""
     from detectorfreesfm_tpu_torch.data.images import from_array
     from detectorfreesfm_tpu_torch.data.synthetic import (
         SyntheticConfig,
@@ -345,8 +374,9 @@ def main_path(params):
     def engine(fused):
         return PairMatchingEngine(EngineConfig(
             img_resize=832, fine_enabled=True, round_matches_ratio=4,
-            fused_matching=fused, batch_size=2), params)
+            fused_matching=fused, batch_size=2, compute_dtype=dtype), params)
 
+    jax_valid, jax_median = JAX_MAIN[dtype]
     fused_engine = engine(True)
     fused_engine.match_pairs(pairs, images)  # warm-up (cuDNN, kernels)
     torch.cuda.synchronize()
@@ -385,16 +415,14 @@ def main_path(params):
     total = sum(counts.values())
     check(all(np.isfinite(m["kpts1"]).all() for m in raw.values()),
           "non-finite keypoints")
-    check(total >= 0.9 * JAX_TOTAL_VALID, "valid matches", total,
-          JAX_TOTAL_VALID)
-    check(median <= JAX_MEDIAN_EPIPOLAR_PX + 0.5, "epipolar median", median,
-          JAX_MEDIAN_EPIPOLAR_PX)
+    check(total >= 0.9 * jax_valid, "valid matches", total, jax_valid)
+    check(median <= jax_median + 0.5, "epipolar median", median, jax_median)
     return keypoints, match_indices, dict(
         render_s=render_s, fused_match_s=fused_s, dense_match_s=dense_s,
         pairs=len(pairs), fused_pairs_per_s=len(pairs) / fused_s,
         valid_per_pair=counts, total_valid=total,
-        jax_total_valid=JAX_TOTAL_VALID, median_epipolar_px=median,
-        jax_median_epipolar_px=JAX_MEDIAN_EPIPOLAR_PX,
+        jax_total_valid=jax_valid, median_epipolar_px=median,
+        jax_median_epipolar_px=jax_median,
         iou_fused_vs_dense=ious,
         n_keypoints={n: len(k) for n, k in keypoints.items()},
         n_index_matches=sum(len(v) for v in match_indices.values()),
@@ -3026,6 +3054,217 @@ def eval_phase():
     return {k: v for k, v in report.items() if k not in ("got", "jax")}
 
 
+# ---------------------------------------------------------------------------
+# The bf16 phase: the JAX package's bf16 compute path on the card (the
+# verbs' `--dtype bfloat16` and `--dtype-train bfloat16`), on the files
+# that the reconstruct and train phases wrote, held to the JAX package's
+# own bf16 runs on the CPU: JAX_RECONSTRUCT_BF16 (`python
+# tests/test_torch_pipeline.py --record --dtype bfloat16`, 1259 s there;
+# refinement stays fp32 in both packages), JAX_MAIN["bfloat16"] and
+# JAX_TRAIN_BF16 (`python tests/test_torch_train.py --record --dtype
+# bfloat16`; the JAX runs compiled without XLA's YNNPACK fusion, which
+# cannot run their batched bf16 dots on the CPU).
+# ---------------------------------------------------------------------------
+
+JAX_RECONSTRUCT_BF16 = {'coarse': {'grey_fraction': 0.007974481658692184,
+                                   'mean_reproj_px': 0.8707430233986009,
+                                   'n_observations': 20553,
+                                   'n_points': 9405,
+                                   'registered': ['view_000.png',
+                                                  'view_001.png',
+                                                  'view_002.png',
+                                                  'view_003.png']},
+                        'refined': {'grey_fraction': 0.009680226234500761,
+                                    'mean_reproj_px': 1.2106153892710356,
+                                    'n_observations': 19730,
+                                    'n_points': 9194,
+                                    'registered': ['view_000.png',
+                                                   'view_001.png',
+                                                   'view_002.png',
+                                                   'view_003.png']},
+                        'result': {'n_images': 4,
+                                   'n_observations': 19730,
+                                   'n_points': 9194,
+                                   'n_registered': 4,
+                                   'pose_auc': {'auc@1': 0.9321562108332536,
+                                                'auc@10': 0.9932156210833252,
+                                                'auc@20': 0.9966078105416628,
+                                                'auc@3': 0.9773854036110846,
+                                                'auc@5': 0.9864312421666508},
+                                   'status': 'ok'}}
+JAX_TRAIN_BF16 = {'matcher_selfsup': {'grad_norm0': 1.5721492767333984,
+                                      'loss0': 2.127548933029175,
+                                      'losses': [2.1276, 2.4171, 2.06]},
+                  'train_matcher': {'grad_norm0': 2.2589006423950195,
+                                    'grad_norms': [2.2589006423950195,
+                                                   7.0278425216674805,
+                                                   1.9631216526031494],
+                                    'loss0': 1.0797322988510132,
+                                    'losses': [1.0797322988510132,
+                                               1.2644320726394653,
+                                               1.0578967332839966],
+                                    'matched_rows': 9603}}
+
+
+def _check_train_bf16(got, ref16, ref32):
+    """The bf16 verbs' losses and gradient norms against JAX's bf16 steps,
+    sized by JAX's own bf16-against-fp32 gap.
+
+    Step 0 (no update yet): each loss and gradient norm within twice that
+    gap, or bf16's unit roundoff (2^-8, relative) where that is larger;
+    two bf16 runs that round in different places sit about sqrt(2) times
+    that gap apart.
+
+    Steps 1 on: Adam's first update moves every parameter by about the
+    learning rate times the sign of its gradient, so rounding that flips
+    a near-zero component moves it as far as a large one, and each later
+    step's gap is one draw of a heavy-tailed spread, not a scale (JAX's
+    bf16 and fp32 train-matcher part by 21% in step 1's gradient norm and
+    1.4% in step 2's; the port's own fp32 step-2 norm is 0.35% from
+    JAX's). So these steps are held as one vector per quantity, by the
+    relative-norm criterion of the CPU parity tests: e(port, JAX bf16) <=
+    e(JAX bf16, JAX fp32) and e(port, JAX fp32) <= 1.5 e(JAX bf16, JAX
+    fp32), e the norm of the difference over the norm of JAX fp32's.
+
+    Returns each quantity's (port, JAX bf16, JAX fp32, tolerance) for
+    step 0 and (e(port, bf16), e(bf16, fp32), e(port, fp32)) for the later
+    steps."""
+    out = {}
+    for name in ("train_matcher", "matcher_selfsup"):
+        g, r16, r32 = got[name], ref16[name], ref32[name]
+        for what, p, j16, j32 in (
+                ("loss 0", g["losses"][0], r16["loss0"], r32["loss0"]),
+                ("grad_norm 0", g["grad_norms"][0], r16["grad_norm0"],
+                 r32["grad_norm0"])):
+            tol = max(2.0 * abs(j16 - j32), 2.0 ** -8 * abs(j32))
+            out[f"{name} {what}"] = (p, j16, j32, tol)
+            check(abs(p - j16) <= tol, "bf16", name, what, p, j16, j32, tol)
+        later = [("losses", g["losses"], r16["losses"], r32["losses"])]
+        if "grad_norms" in r16:
+            later.append(("grad_norms", g["grad_norms"], r16["grad_norms"],
+                          r32["grad_norms"]))
+        for what, p, j16, j32 in later:
+            p, j16, j32 = (np.asarray(v[1:TRAIN_STEPS], np.float64)
+                           for v in (p, j16, j32))
+            scale = np.linalg.norm(j32)
+            e16, gap, e32 = (float(np.linalg.norm(a - b) / scale)
+                             for a, b in ((p, j16), (j16, j32), (p, j32)))
+            what = f"{what} 1-{TRAIN_STEPS - 1}"
+            out[f"{name} {what}"] = (e16, gap, e32)
+            check(e16 <= gap and e32 <= 1.5 * gap, "bf16", name, what,
+                  dict(port=p.tolist(), jax_bf16=j16.tolist(),
+                       jax_fp32=j32.tolist(), e_port_bf16=e16,
+                       e_bf16_fp32=gap, e_port_fp32=e32))
+    return out
+
+
+def bf16_phase(params, fp32_main, recon, train):
+    """The bf16 path on the card (see the section comment): the main
+    path's 6 pairs, both passes on bf16-derived features, run A with
+    --dtype bfloat16, and the two matcher trainers with --dtype-train
+    bfloat16; against the fp32 phases' numbers of this run. Full report
+    in build/smoke_bf16/bf16.json."""
+    import shutil
+
+    from detectorfreesfm_tpu_torch import cli, pipeline
+    from detectorfreesfm_tpu_torch.ops import fused_dsm
+
+    t_phase = time.time()
+    work = os.path.join(REPO, "build", "smoke_bf16")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    report = {}
+
+    t0 = time.time()
+    report["kernels_bf16_features"] = check_kernels(VERB_SHAPE, seed=3,
+                                                    timed=True, bf16=True)
+    report["kernels_s"] = time.time() - t0
+
+    t0 = time.time()
+    _kps, _mi, main16 = main_path(params, "bfloat16")
+    report["main"] = main16
+    report["main_s"] = time.time() - t0
+    report["main_pairs_per_s"] = dict(
+        float32=fp32_main["fused_pairs_per_s"],
+        bfloat16=main16["fused_pairs_per_s"])
+
+    # Run A with --dtype bfloat16 on the reconstruct phase's scene.
+    scene = os.path.join(REPO, "build", "smoke_reconstruct", "scene")
+    out = os.path.join(work, "out_a")
+    for k in fused_dsm.launches:
+        fused_dsm.launches[k] = 0
+    got, run_a = run_reconstruct(cli.main, scene, out, "--fused", "on",
+                                 "--dtype", "bfloat16")
+    got["launches"] = dict(fused_dsm.launches)
+    got["missing_files"] = written_files(out)
+    (_key, engine), = pipeline._ENGINE_CACHE.items()
+    names = sorted(os.listdir(os.path.join(scene, "images")))
+    fused_s, fused_runs = _match_timing(engine, os.path.join(scene,
+                                                             "images"), names)
+    pipeline._ENGINE_CACHE.clear()
+    del engine
+    report["run_a"] = dict(
+        run_a, launches=got["launches"],
+        n_registered=got["result"]["n_registered"],
+        n_points=got["result"]["n_points"],
+        pose_auc=got["result"].get("pose_auc"),
+        jax_n_points=JAX_RECONSTRUCT_BF16["result"]["n_points"],
+        jax_pose_auc=JAX_RECONSTRUCT_BF16["result"]["pose_auc"])
+    report["match_832px_warm_s"] = dict(
+        float32=recon["match_832px"]["fused_s"], bfloat16=fused_s,
+        bfloat16_runs=fused_runs)
+
+    # The two matcher trainers on the train phase's files.
+    data = os.path.join(REPO, "build", "smoke_train", "data")
+    images = os.path.join(data, "scene0", "images")
+    argv = train_argv(data, images, os.path.join(work, "train"))
+    report["train"] = {}
+    for name in ("train_matcher", "matcher_selfsup"):
+        log = os.path.join(work, f"{name}.jsonl")
+        for k in fused_dsm.launches:
+            fused_dsm.launches[k] = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        rc = cli.main(argv[name] + ["--dtype-train", "bfloat16",
+                                    "--log-json", log])
+        wall = time.time() - t0
+        check(rc == 0, "bf16", name, "exit code", rc)
+        with open(log) as f:
+            steps = [json.loads(ln) for ln in f]
+        check(len(steps) == TRAIN_STEPS, "bf16", name, "steps", len(steps))
+        back = read_back(name, train_checkpoint(name, os.path.join(
+            work, "train")))
+        secs = [s["seconds"] for s in steps]
+        report["train"][name] = dict(
+            wall_s=wall, first_step_s=secs[0],
+            steady_median_s=float(np.median(secs[1:])),
+            max_memory_allocated_gib=torch.cuda.max_memory_allocated()
+            / 2 ** 30,
+            fp32_max_memory_allocated_gib=train["verbs"][name][
+                "max_memory_allocated_gib"],
+            losses=[s["loss"] for s in steps],
+            grad_norms=[s["grad_norm"] for s in steps],
+            launches=dict(fused_dsm.launches), checkpoint_leaves=len(back),
+            checkpoint_fp32=all(v.dtype == torch.float32
+                                for v in back.values()))
+    report["bf16_s"] = time.time() - t_phase
+    with open(os.path.join(work, "bf16.json"), "w") as f:
+        json.dump(dict(report, got=got), f, indent=1, default=float)
+
+    _check_reconstruct_gates(got, JAX_RECONSTRUCT_BF16)
+    check(main16["launches"] == {"dsm_pass1": 3, "dsm_pass2": 3},
+          "bf16 main launches", main16["launches"])
+    for name, g in report["train"].items():
+        check(g["launches"] == {"dsm_pass1": 0, "dsm_pass2": 0},
+              "bf16", name, "fused kernels launched while training",
+              g["launches"])
+        check(g["checkpoint_fp32"], "bf16", name, "checkpoint not fp32")
+    report["train_gates"] = _check_train_bf16(report["train"],
+                                              JAX_TRAIN_BF16, JAX_TRAIN)
+    return report
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3114,6 +3353,9 @@ def main():
     emit({"phase": "eval", **ev})
     k1600 = ev["kernels_1600px_b8"]
 
+    b16 = bf16_phase(params, main_res, recon, train)
+    emit({"phase": "bf16", **b16})
+
     replaces = {
         "dsm_pass1": "detectorfreesfm_tpu/ops/pallas_dsm.py:98 (_pass1_kernel)",
         "dsm_pass2": "detectorfreesfm_tpu/ops/pallas_dsm.py:160 "
@@ -3136,7 +3378,11 @@ def main():
                    for n, g in train["verbs"].items()},
                 "train_serve": train["serve"]["launches"][kname],
                 "eval_e1": ev["e1"]["launches"][kname],
-                "eval_e3_1600px": ev["e3"]["launches"][kname]},
+                "eval_e3_1600px": ev["e3"]["launches"][kname],
+                "bf16_main": b16["main"]["launches"][kname],
+                "bf16_reconstruct_a": b16["run_a"]["launches"][kname],
+                **{f"bf16_train_{n}": g["launches"][kname]
+                   for n, g in b16["train"].items()}},
             "shape": verb_k["shape"],
             "max_abs_err": k["max_abs_err"], "ms": k["ms"],
             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
@@ -3145,7 +3391,10 @@ def main():
             "shape_1600px_b8": k1600["shape"],
             "ms_at_1600px_b8": k1600[kname]["ms"],
             "bound_ms_at_1600px_b8": k1600[kname]["bound_ms"],
-            "max_abs_err_at_1600px_b8": k1600[kname]["max_abs_err"]})
+            "max_abs_err_at_1600px_b8": k1600[kname]["max_abs_err"],
+            "max_abs_err_bf16_features": b16["kernels_bf16_features"][
+                kname]["max_abs_err"],
+            "ms_bf16_features": b16["kernels_bf16_features"][kname]["ms"]})
     print(smi)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

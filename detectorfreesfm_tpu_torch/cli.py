@@ -37,6 +37,11 @@ prints one JSON line per scene and writes the aggregated metrics.txt
 (pose AUCs and the registered ratio, per IMC bag with --imc-bags);
 --isolate-scenes runs each scene in a subprocess of the `reconstruct`
 verb, with one resuming retry after a crash or a --scene-timeout.
+
+`--dtype bfloat16` (reconstruct, eval-dataset) runs the matcher in bf16,
+and `--dtype-train bfloat16` (train-matcher, train-matcher-selfsup) trains
+it in bf16 on fp32 parameters, as the JAX verbs do; float32 is the
+default, and refinement stays float32 (models/loftr.py).
 """
 
 from __future__ import annotations
@@ -433,16 +438,14 @@ def cmd_train_matcher(args) -> int:
                                         tuple_to_pair_batch)
     from .train.optimizers import OptimConfig
 
-    if args.dtype_train != "float32":
-        raise SystemExit("--dtype-train bfloat16 is not ported yet "
-                         "(ROADMAP item 12)")
     datasets, sampler, world = _datasets(args)
     if datasets is None:
         print("no scene index files found", file=sys.stderr)
         return 1
     cfg = MatcherTrainConfig(
         arch=args.arch,
-        matcher=MatcherConfig(fine_enabled=bool(args.fine)),
+        matcher=MatcherConfig(compute_dtype=args.dtype_train,
+                              fine_enabled=bool(args.fine)),
         optim=OptimConfig(true_batch_size=args.batch_size * world,
                           backbone_path="backbone"))
     try:
@@ -458,16 +461,15 @@ def cmd_train_matcher_selfsup(args) -> int:
     from .train.selfsup import train_matcher_selfsup
     from .utils.checkpoint import load_matcher_params
 
-    if args.dtype_train != "float32":
-        raise SystemExit("--dtype-train bfloat16 is not ported yet "
-                         "(ROADMAP item 12)")
     init = None
     if args.init_ckpt:
-        init = load_matcher_params(args.init_ckpt, cfg=MatcherConfig())
+        init = load_matcher_params(
+            args.init_ckpt, cfg=MatcherConfig(compute_dtype=args.dtype_train))
     train_matcher_selfsup(
         args.images, args.output, steps=args.steps, img_size=args.img_resize,
         batch=args.batch_size, lr=args.lr, log_every=args.log_every,
-        init_params=init, device=args.device, log_json=args.log_json)
+        compute_dtype=args.dtype_train, init_params=init, device=args.device,
+        log_json=args.log_json)
     return 0
 
 
@@ -553,8 +555,8 @@ def main(argv=None) -> int:
                         dest="known_intrinsics")
         sp.add_argument("--dtype", default="float32",
                         choices=["float32", "bfloat16"],
-                        help="matcher compute dtype (bfloat16 is not "
-                             "ported yet)")
+                        help="matcher compute dtype (refinement stays "
+                             "float32, as in JAX)")
         sp.add_argument("--redo", action="store_true")
         sp.add_argument("--verbose", action="store_true")
         sp.add_argument("--matcher-ckpt", default=None, dest="matcher_ckpt",
@@ -641,7 +643,8 @@ def main(argv=None) -> int:
     sm.add_argument("--log-every", type=int, default=50, dest="log_every")
     sm.add_argument("--dtype-train", default="float32", dest="dtype_train",
                     choices=["float32", "bfloat16"],
-                    help="bfloat16 is not ported yet")
+                    help="the matcher's compute dtype while training "
+                         "(parameters and optimizer stay float32)")
     sm.add_argument("--init-ckpt", default=None, dest="init_ckpt",
                     help="warm-start from a previous checkpoint")
     sm.add_argument("--max-steps", type=int, default=None, dest="max_steps")
@@ -670,7 +673,8 @@ def main(argv=None) -> int:
     ss.add_argument("--log-every", type=int, default=50, dest="log_every")
     ss.add_argument("--dtype-train", default="float32", dest="dtype_train",
                     choices=["float32", "bfloat16"],
-                    help="bfloat16 is not ported yet")
+                    help="the matcher's compute dtype while training "
+                         "(parameters and optimizer stay float32)")
     ss.add_argument("--init-ckpt", default=None, dest="init_ckpt",
                     help="warm-start from a previous checkpoint")
     _add_train_io(ss)

@@ -19,7 +19,7 @@ import numpy as np
 import torch
 
 from ..data.images import LoadedImage, load_gray
-from ..device import resolve_device
+from ..device import compute_dtype, resolve_device
 from ..models.loftr import DetectorFreeMatcher, MatcherConfig
 from ..ops.grid_merge import merge_matches_to_keypoints
 
@@ -36,26 +36,25 @@ class EngineConfig:
     match_threshold: float = 0.2
     max_matches: int = 2048
     round_matches_ratio: Optional[int] = None  # quantize coords to N-px grid
-    compute_dtype: str = "float32"  # float32 only (see __post_init__)
+    compute_dtype: str = "float32"  # or "bfloat16" (the matcher's compute)
     fused_matching: bool = False   # CUDA fused dual-softmax kernels
     fine_enabled: bool = False     # coarse_fine match type
 
     def __post_init__(self):
-        # The JAX engine's other matchers and its bf16 compute are not
-        # ported: refuse rather than run the fp32 LoFTR in their place.
+        # The JAX engine's other matchers are not ported: refuse rather
+        # than run LoFTR in their place. A compute dtype other than
+        # float32 and bfloat16 raises too (JAX would run it in fp32).
         if self.matcher not in LOFTR_FAMILY:
             raise NotImplementedError(
                 f"matcher {self.matcher!r} is not ported yet (ROADMAP item "
                 f"15); the port runs the LoFTR family {LOFTR_FAMILY}")
-        if self.compute_dtype != "float32":
-            raise NotImplementedError(
-                f"compute_dtype={self.compute_dtype!r} is not ported yet "
-                "(ROADMAP item 12); the port's matcher runs in float32")
+        compute_dtype(self.compute_dtype)
 
     def matcher_config(self) -> MatcherConfig:
         return MatcherConfig(
             match_threshold=self.match_threshold,
             max_matches=self.max_matches,
+            compute_dtype=self.compute_dtype,
             fused_matching=self.fused_matching,
             fine_enabled=self.fine_enabled,
         )

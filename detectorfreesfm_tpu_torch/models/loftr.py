@@ -6,10 +6,15 @@ features, sine position encoding, the linear-attention coarse transformer,
 dual-softmax + mutual-NN matching (dense, or fused through the CUDA kernels
 of ops/fused_dsm.py), and the optional 5x5-window fine stage with
 soft-argmax. Images enter NHWC (B, H, W, 1) in [0, 1], as in JAX; matches
-leave as fixed-capacity top-K sets in network-input pixels. Compute is
-float32 only so far. The training paths are JAX's too: `return_conf` also
-returns the dense (B, L, S) confidence (and forces the dense path), and
-`fine_at` runs the same fine head at teacher-forced coarse cells.
+leave as fixed-capacity top-K sets in network-input pixels. The training
+paths are JAX's too: `return_conf` also returns the dense (B, L, S)
+confidence (and forces the dense path), and `fine_at` runs the same fine
+head at teacher-forced coarse cells.
+
+`compute_dtype="bfloat16"` is JAX's bf16 path (models/layers.py): fp32
+parameters; the image, backbone, position encoding and both transformers
+in bf16; matching on fp32 copies of the coarse features (dense and fused
+alike), and the fine window's correlation and soft-argmax in fp32.
 
 The TPU kernel's tile sizes (`dsm_tile_l/s`) have no counterpart here.
 """
@@ -22,7 +27,7 @@ from typing import NamedTuple
 import torch
 from torch import nn
 
-from ..device import set_fp32_backends
+from ..device import compute_dtype, set_backends
 from ..ops.dsnt import soft_argmax_refine
 from ..ops.dual_softmax import (
     CoarseMatches,
@@ -48,11 +53,16 @@ class MatcherConfig:
     max_matches: int = 2048  # static top-K capacity per pair
     fine_window: int = 5  # fine correlation window (fine-res px)
     fine_enabled: bool = False
+    compute_dtype: str = "float32"  # or "bfloat16"; parameters stay fp32
     # Fused dual-softmax + mutual-NN extraction through the CUDA kernels
     # (ops/fused_dsm.py): never materialises the (L, S) conf matrix.
     fused_matching: bool = False
     # Schraudolph exp on the kernel's lse exp terms (±3% on the normaliser).
     dsm_fast_exp: bool = False
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return compute_dtype(self.compute_dtype)
 
 
 class MatchOutput(NamedTuple):
@@ -72,7 +82,7 @@ class FinePreprocessAndMatch(nn.Module):
         self.cfg = cfg
         self.fine_transformer = LocalFeatureTransformer(
             d_model=cfg.d_fine, nhead=cfg.nhead, layer_names=("self", "cross"),
-            attention="linear")
+            attention="linear", compute_dtype=cfg.dtype)
 
     def forward(self, fine0, fine1, matches: CoarseMatches, w8: int):
         """fine0/1: (B, H/2, W/2, C_f) NHWC; matches index the 1/8 grids.
@@ -115,15 +125,16 @@ class DetectorFreeMatcher(nn.Module):
 
     def __init__(self, cfg: MatcherConfig = MatcherConfig()):
         super().__init__()
-        # TF32 off for convs and matmuls (it flips matches at 1/T = 10), and
-        # cuDNN benchmark mode; set where the model is built (device.py).
-        set_fp32_backends()
+        # TF32 off for convs and matmuls (it flips matches at 1/T = 10),
+        # bf16 GEMMs reduced in fp32, and cuDNN's algorithm choice; set
+        # where the model is built (device.py).
+        set_backends(cfg.compute_dtype)
         self.cfg = cfg
-        self.backbone = ResNetFPN_8_2()
+        self.backbone = ResNetFPN_8_2(compute_dtype=cfg.dtype)
         self.coarse_transformer = LocalFeatureTransformer(
             d_model=cfg.d_coarse, nhead=cfg.nhead,
             layer_names=("self", "cross") * cfg.n_coarse_layers,
-            attention="linear")
+            attention="linear", compute_dtype=cfg.dtype)
         self.fine_match = FinePreprocessAndMatch(cfg)
 
     def forward(self, image0, image1, valid_hw0=None, valid_hw1=None,
@@ -137,7 +148,8 @@ class DetectorFreeMatcher(nn.Module):
         b, h, wd = image0.shape[:3]
         h8, w8 = h // 8, wd // 8
         # Shared backbone over both images in one batch of 2B.
-        both = torch.cat([image0, image1], dim=0).float().permute(0, 3, 1, 2)
+        both = torch.cat([image0, image1], dim=0).to(cfg.dtype).permute(
+            0, 3, 1, 2)
         coarse, fine = self.backbone(both)
         coarse = coarse.permute(0, 2, 3, 1)
         fine = fine.permute(0, 2, 3, 1)

@@ -8,8 +8,10 @@ intra-track transformer (the reference patch against all query patches),
 correlate the reference's center feature with each query window, and move
 every query point by the soft-argmax expectation of that correlation.
 
-`l2n` is x·rsqrt(Σx² + 1e-12), as in JAX, not `F.normalize`. The port
-runs in float32 only (bf16 compute is ROADMAP item 12).
+`l2n` is x·rsqrt(Σx² + 1e-12), as in JAX, not `F.normalize`. With
+`compute_dtype="bfloat16"` (JAX's bf16 path, models/layers.py) the patches,
+S2DNet and the transformer run in bf16 on fp32 parameters; the
+correlation and the expectation run on fp32 copies, as in JAX.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ from typing import NamedTuple
 import torch
 from torch import nn
 
+from ..device import compute_dtype
 from ..ops.dsnt import soft_argmax_refine
 from ..ops.roi_align import extract_patches
 from .s2dnet import S2DNet
@@ -38,6 +41,11 @@ class RefinerConfig:
     # reference positions and keep the one whose query heatmaps have the
     # smallest mean std. 0 = off.
     ref_move_radius: int = 0
+    compute_dtype: str = "float32"  # or "bfloat16"; parameters stay fp32
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return compute_dtype(self.compute_dtype)
 
 
 class RefinerOutput(NamedTuple):
@@ -60,11 +68,11 @@ class MultiviewRefiner(nn.Module):
     def __init__(self, cfg: RefinerConfig = RefinerConfig()):
         super().__init__()
         self.cfg = cfg
-        self.backbone = S2DNet(out_dim=cfg.d_model)
+        self.backbone = S2DNet(out_dim=cfg.d_model, compute_dtype=cfg.dtype)
         self.transformer = LocalFeatureTransformer(
             d_model=cfg.d_model, nhead=cfg.nhead,
             layer_names=("self", "cross") * cfg.n_layers,
-            attention="linear")
+            attention="linear", compute_dtype=cfg.dtype)
 
     def forward(self, images, node_img, node_xy, node_scale, node_mask
                 ) -> RefinerOutput:
@@ -77,7 +85,7 @@ class MultiviewRefiner(nn.Module):
         patches = extract_patches(
             images, node_xy.reshape(t * v, 2), node_img.reshape(t * v),
             cfg.crop_size, node_scale.reshape(t * v))   # (T*V, P, P, 1)
-        feats = self.backbone(patches.permute(0, 3, 1, 2))  # (T*V, C, P, P)
+        feats = self.backbone(patches.to(cfg.dtype).permute(0, 3, 1, 2))
         off = (cfg.crop_size - w) // 2
         feats = feats[:, :, off:off + w, off:off + w]
         feats = feats.permute(0, 2, 3, 1).reshape(t, v, w * w, c)

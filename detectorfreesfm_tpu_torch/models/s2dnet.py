@@ -4,6 +4,8 @@ Port of the JAX package's models/s2dnet.py: a VGG16 prefix giving conv1_2
 (stride 1, 64-d) and conv3_3 (stride 4, 256-d) maps, each adapted to
 `out_dim` by a 1x1 -> gelu -> 5x5 conv pair; the stride-4 map is upsampled
 bilinearly to the patch size and the two are summed. NCHW in and out.
+`compute_dtype` is flax's `dtype` (models/layers.py): at bf16 every conv,
+activation, pool, the upsampling and the sum are bf16.
 
 Parity with flax:
   * `max_pool(padding="SAME")` pads -inf on the right and bottom only when
@@ -25,6 +27,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .layers import Conv2d
+
 
 def _same_max_pool(x, k: int = 3, s: int = 2):
     """Flax max_pool with padding="SAME": output ceil(n / s), the padding
@@ -42,11 +46,13 @@ class S2DNet(nn.Module):
     def __init__(self, out_dim: int = 128,
                  vgg_dims1: Sequence[int] = (64, 64),
                  vgg_dims2: Sequence[int] = (128, 128),
-                 vgg_dims3: Sequence[int] = (256, 256, 256)):
+                 vgg_dims3: Sequence[int] = (256, 256, 256),
+                 compute_dtype: torch.dtype = torch.float32):
         super().__init__()
 
         def conv(cin, cout, k):
-            return nn.Conv2d(cin, cout, k, padding=k // 2)
+            return Conv2d(cin, cout, k, padding=k // 2,
+                          compute_dtype=compute_dtype)
 
         self.conv1_1 = conv(1, vgg_dims1[0], 3)
         self.conv1_2 = conv(vgg_dims1[0], vgg_dims1[1], 3)

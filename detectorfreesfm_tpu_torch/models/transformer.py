@@ -4,7 +4,9 @@ Port of `EncoderLayer` and `LocalFeatureTransformer` from the JAX package's
 models/transformer.py: bias-free QKV projections, linear (elu+1) or masked
 full attention, a merge projection, LayerNorm over the concatenation, a
 concat-MLP feed-forward and a residual add. Flax's LayerNorm epsilon is
-1e-6 (torch's default is 1e-5), and it is kept.
+1e-6 (torch's default is 1e-5), and it is kept. `compute_dtype` is flax's
+`dtype` (models/layers.py): at bf16 the projections, the MLP, the relu
+and the residual stream are bf16, LayerNorm runs in fp32 rounded to bf16.
 """
 
 from __future__ import annotations
@@ -14,25 +16,27 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention import full_attention, linear_attention
+from .layers import LayerNorm, Linear
 
 LN_EPS = 1e-6
 
 
 class EncoderLayer(nn.Module):
-    def __init__(self, d_model: int, nhead: int, attention: str = "linear"):
+    def __init__(self, d_model: int, nhead: int, attention: str = "linear",
+                 compute_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.d_model, self.nhead = d_model, nhead
         self.attn = (linear_attention if attention == "linear"
                      else full_attention)
-        d = d_model
-        self.q_proj = nn.Linear(d, d, bias=False)
-        self.k_proj = nn.Linear(d, d, bias=False)
-        self.v_proj = nn.Linear(d, d, bias=False)
-        self.merge = nn.Linear(d, d)
-        self.norm1 = nn.LayerNorm(2 * d, eps=LN_EPS)
-        self.mlp1 = nn.Linear(2 * d, 2 * d)
-        self.mlp2 = nn.Linear(2 * d, d)
-        self.norm2 = nn.LayerNorm(d, eps=LN_EPS)
+        d, dt = d_model, compute_dtype
+        self.q_proj = Linear(d, d, bias=False, compute_dtype=dt)
+        self.k_proj = Linear(d, d, bias=False, compute_dtype=dt)
+        self.v_proj = Linear(d, d, bias=False, compute_dtype=dt)
+        self.merge = Linear(d, d, compute_dtype=dt)
+        self.norm1 = LayerNorm(2 * d, LN_EPS, dt)
+        self.mlp1 = Linear(2 * d, 2 * d, compute_dtype=dt)
+        self.mlp2 = Linear(2 * d, d, compute_dtype=dt)
+        self.norm2 = LayerNorm(d, LN_EPS, dt)
 
     def forward(self, x, source, x_mask=None, source_mask=None):
         """x: (B, L, C) queries; source: (B, S, C) keys/values."""
@@ -53,12 +57,13 @@ class LocalFeatureTransformer(nn.Module):
     """Alternating self/cross attention over two feature sets."""
 
     def __init__(self, d_model: int = 256, nhead: int = 8,
-                 layer_names=("self", "cross") * 4, attention: str = "linear"):
+                 layer_names=("self", "cross") * 4, attention: str = "linear",
+                 compute_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.kinds = tuple(layer_names)
         for i, kind in enumerate(self.kinds):
-            self.add_module(f"layer_{i}_{kind}",
-                            EncoderLayer(d_model, nhead, attention))
+            self.add_module(f"layer_{i}_{kind}", EncoderLayer(
+                d_model, nhead, attention, compute_dtype))
 
     def forward(self, feat0, feat1, mask0=None, mask1=None):
         """feat0 (B, L, C), feat1 (B, S, C) -> transformed (feat0, feat1)."""

@@ -3,7 +3,9 @@
 Port of the JAX package's ops/attention.py: elu+1 linear attention (the
 O(N·d²) associativity trick) and masked full softmax attention. All take
 (B, N, H, D) tensors and optional (B, N) bool masks; the normalising
-reductions run in float32 whatever the input dtype.
+reductions run in float32 whatever the input dtype. Each of JAX's
+`preferred_element_type=float32` products is a product of fp32 copies
+here (a bf16 einsum would return a result already rounded to bf16).
 """
 
 from __future__ import annotations
@@ -13,7 +15,12 @@ import torch.nn.functional as F
 
 
 def linear_attention(q, k, v, q_mask=None, kv_mask=None, eps: float = 1e-6):
-    """q: (B, L, H, D); k, v: (B, S, H, D) -> (B, L, H, D) in v's dtype."""
+    """q: (B, L, H, D); k, v: (B, S, H, D) -> (B, L, H, D) in v's dtype.
+
+    As in JAX, the feature maps Q and K stay in the input dtype, and `k_sum`
+    and `KV` are rounded to Q's dtype before the products that read them;
+    all three products accumulate in fp32. In fp32 every rounding is a
+    no-op."""
     dtype = v.dtype
     Q = F.elu(q) + 1.0
     K = F.elu(k) + 1.0
@@ -26,9 +33,10 @@ def linear_attention(q, k, v, q_mask=None, kv_mask=None, eps: float = 1e-6):
     v_scale = 1.0 / float(max(1, k.shape[1]))
     KV = torch.einsum("bshd,bshe->bhde", K.float(), v.float()) * v_scale
     k_sum = K.float().sum(dim=1)                                  # (B, H, D)
-    denom = torch.einsum("blhd,bhd->blh", Q.float(), k_sum)
+    Qf = Q.float()
+    denom = torch.einsum("blhd,bhd->blh", Qf, k_sum.to(Q.dtype).float())
     Z = 1.0 / (denom * v_scale + eps)                             # (B, L, H)
-    out = torch.einsum("blhd,bhde->blhe", Q.float(), KV)
+    out = torch.einsum("blhd,bhde->blhe", Qf, KV.to(Q.dtype).float())
     return (out * Z[..., None]).to(dtype)
 
 

@@ -66,7 +66,8 @@ class PipelineConfig:
     max_matches: int = 2048
     round_matches_ratio: Optional[int] = None
     batch_size: int = 1
-    compute_dtype: str = "float32"
+    compute_dtype: str = "float32"  # the matcher's; refinement keeps
+                                    # refine.compute_dtype, as in JAX
     fused_matching: bool = False
     # "coarse_only" (default) or "coarse_fine" (sub-pixel fine stage; the
     # reference's TexturePoorSfM protocol pairs it with round ratio 4)

@@ -25,7 +25,9 @@ a fault of the card or its libraries, device.is_device_error), with
 per-iteration counts and times.
 
 The refiner runs in float32 with TF32 off for cuBLAS and cuDNN (as the
-matcher), so the card stays comparable with the fp32 JAX reference. Unlike
+matcher), so the card stays comparable with the fp32 JAX reference;
+`RefineConfig.compute_dtype="bfloat16"` runs it in bf16 as JAX's does
+(models/multiview_matcher.py), with bf16 GEMMs reduced in fp32. Unlike
 the matcher it leaves cuDNN's benchmark mode off: timing the algorithms of
 a 8 192-patch chunk costs 16.4 s at crop 19 and 9.4 s at crop 15 on an
 H100, against 0.256 and 0.170 s a chunk with the heuristic's picks (0.234
@@ -46,7 +48,7 @@ import torch
 
 from ..core.geometry import np_quat_to_rotmat
 from ..core.precision import geometry_precision
-from ..device import is_device_error, resolve_device
+from ..device import bf16_reduced_in_fp32, is_device_error, resolve_device
 from ..models.multiview_matcher import MultiviewRefiner, RefinerConfig
 from ..sfm.mapper import IncrementalMapper, MapperConfig
 from ..sfm.reconstruction import Reconstruction
@@ -74,6 +76,10 @@ class RefineConfig:
     # (the reference's fix_all_images when refining 3D points only) and
     # PnP re-registration is skipped.
     fix_all_poses: bool = False
+    # The refiner's compute dtype ("float32" or "bfloat16"). As in JAX it
+    # is set through this config only: the pipeline and the CLI leave it
+    # at float32, whatever the matcher's dtype.
+    compute_dtype: str = "float32"
     save_iters_to: Optional[str] = None  # write model_refined_{i}/ per
                                          # completed iteration
 
@@ -190,7 +196,8 @@ def _build_refiner(rcfg: RefinerConfig, params, seed: int, dev):
 def _refine_iteration(rec, images_dev, image_order, params, cfg, mapper,
                       seed, verbose, it, dev) -> dict:
     window = cfg.windows[min(it, len(cfg.windows) - 1)]
-    rcfg = RefinerConfig(crop_size=window + cfg.crop_extra, window=window)
+    rcfg = RefinerConfig(crop_size=window + cfg.crop_extra, window=window,
+                         compute_dtype=cfg.compute_dtype)
     model = _build_refiner(rcfg, params, seed, dev)
 
     t0 = time.perf_counter()
@@ -228,9 +235,12 @@ def _refine_iteration(rec, images_dev, image_order, params, cfg, mapper,
             ev[0].record()
         else:
             ev = time.perf_counter()
-        with geometry_precision(), torch.backends.cudnn.flags(
-                enabled=True, benchmark=False, deterministic=False,
-                allow_tf32=False), torch.no_grad():
+        # Full fp32 products and bf16 GEMMs reduced in fp32, whichever
+        # the refiner's dtype; cuDNN's heuristic algorithms (see above).
+        with geometry_precision(), bf16_reduced_in_fp32(), \
+                torch.backends.cudnn.flags(
+                    enabled=True, benchmark=False, deterministic=False,
+                    allow_tf32=False), torch.no_grad():
             out = model(images_dev, *batch)
         if cuda:
             ev[1].record()

@@ -11,8 +11,12 @@ model is applied with BatchNorm on its running statistics, which get
 gradients like every other leaf. The fused dual-softmax kernels are off
 this path: the loss needs the dense confidence (`return_conf`).
 
+With `matcher.compute_dtype="bfloat16"` the forward runs in bf16 as JAX's
+does (models/loftr.py); the loss still reads the fp32 dense confidence,
+and parameters, gradients and Adam's state stay fp32.
+
 Only the LoFTR family is ported (ROADMAP item 15 for ASpan and
-MatchFormer). bf16 training is ROADMAP item 12.
+MatchFormer).
 """
 
 from __future__ import annotations

@@ -12,7 +12,9 @@ steps), weight_decay=1e-8)` over the whole variables tree, BatchNorm
 statistics included (they decay and get gradients, as in JAX). The
 checkpoint is `{"params": variables}`, which JAX's `load_matcher_params`
 reads. `log_json` (a path) gets one JSON line per step: its loss, global
-gradient norm (before clipping) and seconds.
+gradient norm (before clipping) and seconds. `compute_dtype="bfloat16"`
+runs the matcher's forward in bf16 (models/loftr.py); the parameters and
+the optimizer stay fp32, as in JAX.
 
     python -m detectorfreesfm_tpu_torch.cli train-matcher-selfsup \\
         --images <dir> --output ckpt.msgpack --steps 1000
@@ -28,7 +30,7 @@ import numpy as np
 import torch
 
 from ..data.images import load_gray
-from ..device import resolve_device, set_fp32_backends
+from ..device import resolve_device
 from ..models.loftr import DetectorFreeMatcher, MatcherConfig
 from ..utils import checkpoint, prng
 from .homography import (homography_cell_assignment, random_homography,
@@ -75,6 +77,7 @@ def train_matcher_selfsup(
     lr: float = 1e-3,
     seed: int = 0,
     log_every: int = 50,
+    compute_dtype: str = "float32",
     init_params=None,
     matcher_cfg: Optional[MatcherConfig] = None,
     aug_strength: float = 1.0,
@@ -85,10 +88,9 @@ def train_matcher_selfsup(
     init_params: a state_dict to start from (else a fresh flax-style init
     from `seed`); only the coarse leaves train, as in JAX."""
     dev = resolve_device(device)
-    set_fp32_backends()
     imgs = load_folder(image_dir, img_size, dev)
-    cfg = matcher_cfg or MatcherConfig()
-    model = DetectorFreeMatcher(cfg)
+    cfg = matcher_cfg or MatcherConfig(compute_dtype=compute_dtype)
+    model = DetectorFreeMatcher(cfg)  # sets the backends of its dtype
     exclude = () if cfg.fine_enabled else (checkpoint.FINE_PREFIX,)
     params = init_leaves(model, seed, dev, exclude)
     if init_params is not None:

@@ -73,13 +73,12 @@ def test_verb_equals_jax_cli(tmp_path):
     (["--matcher-arch", "aspan"], "needs an explicit --matcher-ckpt"),
     (["--matcher-arch", "aspan", "--matcher-ckpt", "x.msgpack"],
      "ROADMAP item 15"),
-    (["--dtype", "bfloat16"], "ROADMAP item 12"),
     (["--matcher-arch", "matchformer", "--matcher-ckpt", "x.msgpack"],
      "ROADMAP item 15"),
 ])
 def test_verb_refuses_what_is_not_ported(tmp_path, extra, match):
-    """Another matcher and bf16 compute raise before any work, naming
-    their ROADMAP item; none runs the fp32 LoFTR in their place."""
+    """Another matcher raises before any work, naming its ROADMAP item;
+    none runs LoFTR in its place."""
     scene = tmp_path / "scene"
     chip_smoke.write_scene(str(scene), size=64, n_views=2)
     with pytest.raises(SystemExit, match=match):
@@ -93,8 +92,12 @@ def test_engine_and_pipeline_configs_refuse_what_is_not_ported():
 
     with pytest.raises(NotImplementedError, match="item 15"):
         EngineConfig(matcher="matchformer")
-    with pytest.raises(NotImplementedError, match="item 12"):
-        TP.PipelineConfig(compute_dtype="bfloat16").engine_config()
+    # bf16 compute is ported: the config reaches the matcher's, and a
+    # dtype that JAX would run in fp32 raises.
+    bf16 = TP.PipelineConfig(compute_dtype="bfloat16").engine_config()
+    assert bf16.matcher_config().dtype == torch.bfloat16
+    with pytest.raises(ValueError, match="float16"):
+        EngineConfig(compute_dtype="float16")
     # known-pose triangulation is ported (tests/test_torch_eval_dataset.py)
     assert TP.PipelineConfig(triangulation_mode=True).triangulation_mode
     cfg = TP.PipelineConfig(match_type="coarse_fine", fused_matching=True)

@@ -7,6 +7,9 @@ CPU, on generate_scene(seed=0, size=832, n_views=4), coarse_fine with
 matches rounded to a 4 px grid:
 
     JAX_PLATFORMS=cpu python tests/test_torch_engine.py [--size 832]
+
+and, with `--dtype bfloat16`, the same engine with its matcher in bf16
+(the numbers of the smoke's `bf16` phase).
 """
 
 import os
@@ -48,7 +51,7 @@ def _epipolar_summary(raw, names, K, q, t):
     return counts, float(np.median(e))
 
 
-def _jax_engine_matches(images, names, pairs, size):
+def _jax_engine_matches(images, names, pairs, size, dtype="float32"):
     import jax
     import jax.numpy as jnp
     from flax import serialization
@@ -67,7 +70,8 @@ def _jax_engine_matches(images, names, pairs, size):
     params = jax.tree_util.tree_map(lambda x: jnp.asarray(x, jnp.float32),
                                     raw)
     cfg = JaxEngineConfig(img_resize=size, fine_enabled=True,
-                          round_matches_ratio=4, batch_size=1)
+                          round_matches_ratio=4, batch_size=1,
+                          compute_dtype=dtype)
     engine = JaxEngine(cfg, params=params,
                        mesh=make_mesh(1, devices=jax.devices()[:1]))
     imgs = {n: JaxImage(images[i], np.ones(2, np.float32), (size, size),
@@ -378,8 +382,8 @@ def test_epipolar_error_is_zero_on_true_correspondences():
     assert symmetric_epipolar_error(F, proj[0], proj[1] + 3.0).mean() > 0.5
 
 
-def record_jax_reference(size=832, n_views=4, seed=0):
-    """Print the dense fp32 JAX engine's numbers on the smoke's scene."""
+def record_jax_reference(size=832, n_views=4, seed=0, dtype="float32"):
+    """Print the dense JAX engine's numbers on the smoke's scene."""
     import json
     import time
 
@@ -392,10 +396,10 @@ def record_jax_reference(size=832, n_views=4, seed=0):
     names = [f"view_{i}" for i in range(n_views)]
     pairs = exhaustive_pairs(names)
     t0 = time.time()
-    raw = _jax_engine_matches(images, names, pairs, size)
+    raw = _jax_engine_matches(images, names, pairs, size, dtype)
     counts, med = _epipolar_summary(raw, names, K, q, t)
     print(json.dumps({
-        "engine": "jax dense fp32 cpu", "size": size, "n_views": n_views,
+        "engine": f"jax dense {dtype} cpu", "size": size, "n_views": n_views,
         "seed": seed, "valid_per_pair": counts,
         "total_valid": sum(counts.values()), "median_epipolar_px": med,
         "seconds": time.time() - t0}), flush=True)
@@ -408,5 +412,7 @@ if __name__ == "__main__":
     ap = argparse.ArgumentParser()
     ap.add_argument("--size", type=int, default=832)
     ap.add_argument("--views", type=int, default=4)
+    ap.add_argument("--dtype", default="float32",
+                    choices=("float32", "bfloat16"))
     args = ap.parse_args()
-    record_jax_reference(args.size, args.views)
+    record_jax_reference(args.size, args.views, dtype=args.dtype)

@@ -139,6 +139,73 @@ def test_fused_engine_matches_dense_engine_on_gpu():
         assert len(rows[0] & rows[1]) / len(rows[0] | rows[1]) >= 0.95, p
 
 
+@pytest.mark.cuda
+def test_bf16_forward_reduces_bf16_gemms_in_fp32():
+    """A bf16 matcher forward on the card runs with cuBLAS's bf16
+    reduced-precision reduction off inside it (torch's default is on;
+    XLA reduces bf16 GEMMs in fp32), TF32 off, bf16 activations, fp32
+    parameters and finite matches."""
+    _needs_cuda()
+    from detectorfreesfm_tpu_torch.models.loftr import (DetectorFreeMatcher,
+                                                        MatcherConfig)
+
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = True
+    torch.manual_seed(0)
+    model = DetectorFreeMatcher(MatcherConfig(
+        compute_dtype="bfloat16", fine_enabled=True)).cuda().eval()
+    seen = []
+
+    def probe(mod, args, out):
+        seen.append((
+            torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction,
+            torch.backends.cuda.matmul.allow_tf32, out.dtype))
+
+    layer = model.coarse_transformer.layer_0_self
+    hooks = [m.register_forward_hook(probe) for m in (layer.q_proj,
+                                                      layer.mlp2)]
+    x = torch.rand(2, 256, 256, 1, device="cuda")
+    with torch.no_grad():
+        out = model(x, x.flip(1))
+    for h in hooks:
+        h.remove()
+    assert seen and all(s == (False, False, torch.bfloat16) for s in seen)
+    assert all(p.dtype == torch.float32 for p in model.parameters())
+    assert out.coords1.dtype == torch.float32
+    assert torch.isfinite(out.coords1).all()
+
+
+@pytest.mark.cuda
+def test_bf16_fused_matches_dense_at_832px():
+    """One 832 px pair through the bf16 r5 matcher (coarse_fine, 4 px
+    rounding): the kernels, fed upcast bf16 features, give the dense
+    path's match rows at IoU >= 0.95."""
+    _needs_cuda()
+    from detectorfreesfm_tpu_torch.data.images import from_array
+    from detectorfreesfm_tpu_torch.data.synthetic import (SyntheticConfig,
+                                                          generate_scene)
+    from detectorfreesfm_tpu_torch.match.engine import (EngineConfig,
+                                                        PairMatchingEngine)
+    from detectorfreesfm_tpu_torch.utils.checkpoint import load_matcher_params
+
+    imgs = generate_scene(0, SyntheticConfig(size=832, n_views=2))[0]
+    images = {f"v{i}": from_array(imgs[i]) for i in range(2)}
+    pair = ("v0", "v1")
+    before = dict(fused_dsm.launches)
+    rows = []
+    for fused in (False, True):
+        cfg = EngineConfig(img_resize=832, fine_enabled=True,
+                           round_matches_ratio=4, fused_matching=fused,
+                           compute_dtype="bfloat16")
+        engine = PairMatchingEngine(
+            cfg, load_matcher_params(WEIGHTS, cfg.matcher_config()))
+        m = engine.match_pairs([pair], images)[pair]
+        rows.append({tuple(r) for r in np.concatenate(
+            [m["kpts0"], m["kpts1"]], 1).tolist()})
+    assert fused_dsm.launches["dsm_pass1"] == before["dsm_pass1"] + 1
+    assert len(rows[0]) > 500
+    assert len(rows[0] & rows[1]) / len(rows[0] | rows[1]) >= 0.95
+
+
 # --- the geometry slice: the port on the card against the port on the CPU --
 
 

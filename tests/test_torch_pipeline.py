@@ -9,6 +9,9 @@ iterations), on the smoke's 4-view 1040 px scene written by
 chip_smoke.write_scene (about half an hour on a CPU):
 
     JAX_PLATFORMS=cpu python tests/test_torch_pipeline.py --record
+
+With `--dtype bfloat16` the JAX CLI runs with `--dtype bfloat16` on the
+same files: JAX_RECONSTRUCT_BF16, the smoke's `bf16` run A.
 """
 
 import json
@@ -389,10 +392,13 @@ if __name__ == "__main__":
     ap.add_argument("--record", action="store_true", required=True)
     ap.add_argument("--work", default=None,
                     help="keep the scene and the JAX output here")
+    ap.add_argument("--dtype", default="float32",
+                    choices=("float32", "bfloat16"))
     args = ap.parse_args()
     import json
 
+    extra = () if args.dtype == "float32" else ("--dtype", args.dtype)
     with tempfile.TemporaryDirectory() as d:
-        got, run = record_jax_reference(args.work or d)
+        got, run = record_jax_reference(args.work or d, extra=extra)
     print(json.dumps(got), flush=True)
     print(json.dumps(run), flush=True)

@@ -276,7 +276,8 @@ def test_refiner_selfsup_equals_jax(tmp_path):
 
 def test_selfsup_verbs_write_what_jax_reads(tmp_path):
     """Both bootstrap verbs on the CPU at a small size: checkpoints that
-    JAX's loaders read, finite logged losses, and bf16 refused."""
+    JAX's loaders read, finite logged losses, also with
+    `--dtype-train bfloat16` (fp32 leaves written)."""
     from detectorfreesfm_tpu_torch import cli
 
     images = write_images(str(tmp_path / "im"), size=64)
@@ -302,6 +303,16 @@ def test_selfsup_verbs_write_what_jax_reads(tmp_path):
     assert set(raw["params"]) == {"params", "batch_stats"}
     with open(log) as f:
         assert len(f.read().splitlines()) == 2
-    with pytest.raises(SystemExit, match="item 12"):
-        cli.main(["train-matcher-selfsup", "--images", images, "--output", m,
-                  "--dtype-train", "bfloat16", "--device", "cpu"])
+    import json
+
+    m16, log16 = str(tmp_path / "m16.msgpack"), str(tmp_path / "m16.jsonl")
+    assert cli.main(["train-matcher-selfsup", "--images", images, "--output",
+                     m16, "--steps", "1", "--img-resize", "64",
+                     "--batch-size", "1", "--dtype-train", "bfloat16",
+                     "--device", "cpu", "--log-json", log16]) == 0
+    with open(m16, "rb") as f:
+        raw = serialization.msgpack_restore(f.read())
+    assert all(a.dtype == np.float32 for a in
+               jax.tree_util.tree_leaves(raw["params"]))
+    with open(log16) as f:
+        assert np.isfinite(json.loads(f.read().splitlines()[0])["loss"])

@@ -16,7 +16,8 @@ each leaf by about lr whatever the gradient's size).
     JAX_PLATFORMS=cpu python tests/test_torch_train.py --record
 
 records JAX_TRAIN, the JAX numbers that chip_smoke.py's `train` phase
-holds the port to (see `record`).
+holds the port to (see `record`); with `--dtype bfloat16` appended,
+JAX_TRAIN_BF16 for its `bf16` phase.
 """
 
 import json
@@ -563,10 +564,11 @@ def test_new_modules_import_no_jax():
 
 # --- JAX_TRAIN record -------------------------------------------------------
 
-def _record_matcher(data, weights, steps):
-    """`train-matcher --fine` as JAX's verb runs it (its dataset, sampler,
-    MatcherTrainer, load_params), each step JAX's loss function and optax
-    update, jitted once: the losses and the step-0 gradient norm."""
+def _record_matcher(data, weights, steps, dtype="float32"):
+    """`train-matcher --fine [--dtype-train bfloat16]` as JAX's verb runs
+    it (its dataset, sampler, MatcherTrainer, load_params), each step JAX's
+    loss function and optax update, jitted once: the losses and the
+    gradient norms."""
     import glob
 
     from detectorfreesfm_tpu.data.megadepth import (
@@ -586,7 +588,7 @@ def _record_matcher(data, weights, steps):
     ids = SceneBalancedSampler([len(d) for d in ds],
                                n_per_scene=200).epoch(0).tolist()
     jt = MatcherTrainer(MatcherTrainConfig(
-        matcher=MatcherConfig(fine_enabled=True),
+        matcher=MatcherConfig(fine_enabled=True, compute_dtype=dtype),
         optim=OptimConfig(true_batch_size=1, backbone_path="backbone")))
     img = jnp.zeros((1, 832, 832, 1))
     params = jax.jit(jt.model.init)(jax.random.PRNGKey(jt.cfg.seed), img, img)
@@ -684,6 +686,31 @@ def _record_refiner(data, weights, steps):
     return out
 
 
+def _record_matcher_selfsup(images, weights, steps, work,
+                            dtype="float32"):
+    """`train-matcher-selfsup [--dtype-train bfloat16]` as JAX's verb runs
+    it at its defaults: the printed losses of `steps` steps, and step 0's
+    exact loss and gradient norm."""
+    import io
+    from contextlib import redirect_stdout
+
+    from detectorfreesfm_tpu.models.loftr import MatcherConfig
+    from detectorfreesfm_tpu.train.selfsup import (load_matcher_params,
+                                                   train_matcher_selfsup)
+    from test_torch_selfsup import jax_matcher_selfsup_step0, printed_losses
+
+    params = load_matcher_params(weights)
+    loss0, norm0 = jax_matcher_selfsup_step0(
+        images, params, 416, 4, cfg=MatcherConfig(compute_dtype=dtype))
+    buf = io.StringIO()
+    with redirect_stdout(buf):
+        train_matcher_selfsup(images, os.path.join(work, "m.msgpack"),
+                              steps=steps, log_every=1, init_params=params,
+                              compute_dtype=dtype)
+    return dict(loss0=loss0, grad_norm0=norm0,
+                losses=printed_losses(buf.getvalue()))
+
+
 def _record_selfsup(images, weights, steps, work):
     """Both bootstraps as JAX's verbs run them at their defaults: the
     printed losses of `steps` steps, and step 0's exact loss and gradient
@@ -695,21 +722,10 @@ def _record_selfsup(images, weights, steps, work):
         MultiviewRefiner, RefinerConfig)
     from detectorfreesfm_tpu.train.refiner_selfsup import (
         train_refiner_selfsup)
-    from detectorfreesfm_tpu.train.selfsup import (load_matcher_params,
-                                                   train_matcher_selfsup)
-    from test_torch_selfsup import (jax_matcher_selfsup_step0,
-                                    jax_refiner_selfsup_step0,
-                                    printed_losses)
+    from test_torch_selfsup import jax_refiner_selfsup_step0, printed_losses
 
-    out = {}
-    params = load_matcher_params(weights)
-    loss0, norm0 = jax_matcher_selfsup_step0(images, params, 416, 4)
-    buf = io.StringIO()
-    with redirect_stdout(buf):
-        train_matcher_selfsup(images, os.path.join(work, "m.msgpack"),
-                              steps=steps, log_every=1, init_params=params)
-    out["matcher_selfsup"] = dict(loss0=loss0, grad_norm0=norm0,
-                                  losses=printed_losses(buf.getvalue()))
+    out = {"matcher_selfsup": _record_matcher_selfsup(images, weights,
+                                                      steps, work)}
     v, t = 4, 128
     fresh = MultiviewRefiner(RefinerConfig()).init(
         jax.random.PRNGKey(0), jnp.zeros((v, 256, 256, 1)),
@@ -725,9 +741,11 @@ def _record_selfsup(images, weights, steps, work):
     return out
 
 
-def record(work):
+def record(work, dtype="float32"):
     """JAX_TRAIN for chip_smoke.py's `train` phase: the same files (its
-    write_train_data), weights and seeds as the phase's verbs."""
+    write_train_data), weights and seeds as the phase's verbs. With
+    dtype="bfloat16", JAX_TRAIN_BF16 for its `bf16` phase: the two verbs
+    that take `--dtype-train`."""
     import time
 
     sys.path.insert(0, REPO)
@@ -736,6 +754,15 @@ def record(work):
     os.makedirs(work, exist_ok=True)
     data, images = cs.write_train_data(work)
     rec, secs = {}, {}
+    if dtype != "float32":
+        t0 = time.time()
+        rec["train_matcher"] = _record_matcher(data, cs.WEIGHTS,
+                                               cs.TRAIN_STEPS, dtype)
+        rec["matcher_selfsup"] = _record_matcher_selfsup(
+            images, cs.WEIGHTS, cs.TRAIN_STEPS, work, dtype)
+        print(json.dumps(rec))
+        print(json.dumps({"cpu_seconds": time.time() - t0}))
+        return
     t0 = time.time()
     rec["train_matcher"] = _record_matcher(data, cs.WEIGHTS, cs.TRAIN_STEPS)
     secs["train_matcher"] = time.time() - t0
@@ -755,6 +782,8 @@ if __name__ == "__main__":
 
         jax.config.update("jax_platforms", "cpu")
         record(sys.argv[sys.argv.index("--work") + 1]
-               if "--work" in sys.argv else tempfile.mkdtemp())
+               if "--work" in sys.argv else tempfile.mkdtemp(),
+               sys.argv[sys.argv.index("--dtype") + 1]
+               if "--dtype" in sys.argv else "float32")
     else:
         raise SystemExit(pytest.main([__file__, "-q"]))

@@ -119,7 +119,7 @@ def test_fresh_init_matches_flax_distribution_matcher():
 def test_train_matcher_verb(tmp_path):
     """`train-matcher --fine` on the CPU from a JAX-written warm start:
     checkpoints that JAX's MatcherTrainer and load_matcher_params read,
-    finite logged losses, and bf16 training refused."""
+    finite logged losses, also with `--dtype-train bfloat16`."""
     from detectorfreesfm_tpu.train.selfsup import load_matcher_params
     from detectorfreesfm_tpu_torch import cli
 
@@ -156,5 +156,12 @@ def test_train_matcher_verb(tmp_path):
     with open(log) as f:
         steps = [json.loads(ln) for ln in f]
     assert len(steps) == 2 and all(np.isfinite(s["loss"]) for s in steps)
-    with pytest.raises(SystemExit, match="item 12"):
-        cli.main(args + ["--dtype-train", "bfloat16"])
+    try:
+        loftr.MatcherConfig = lambda **kw: cfg(n_coarse_layers=1, border=1,
+                                               max_matches=32, **kw)
+        assert cli.main(args + ["--dtype-train", "bfloat16"]) == 0
+    finally:
+        loftr.MatcherConfig = cfg
+    with open(log) as f:
+        steps = [json.loads(ln) for ln in f]
+    assert len(steps) == 2 and all(np.isfinite(s["loss"]) for s in steps)
