@@ -90,6 +90,23 @@ standard library, numpy, torch and the port. Phases, one JSON line each:
            back, 0 launches; reported: warm
            pairs/s, device ms by kernel and training peak memory in bf16
            beside fp32's; full report in build/smoke_bf16/bf16.json
+  alt      the other matcher families of models.build_matcher, on the
+           files of the reconstruct and train phases: ASpan (the bundled
+           weights/demo_aspan_bf16.msgpack, 16 464 664 parameters) on
+           main's 6 pairs in batches of 2, fp32 and bf16, held to the JAX
+           engine's numbers (JAX_MAIN_ASPAN: valid >= 0.9 x, epipolar
+           median <= + 0.5 px); run A with `--matcher-arch aspan
+           --matcher-ckpt ... --fused on` (dense, as in JAX) held to the
+           JAX CLI's own run by run A's gates (JAX_RECONSTRUCT_ASPAN);
+           `train-matcher --arch aspan` (warm start from the bundled
+           file) and `--arch matchformer` (fresh init), 3 steps each, held
+           to JAX_TRAIN's entries (ASpan: as the train phase; MatchFormer:
+           the fresh tolerance), checkpoints read back strictly; the
+           trained MatchFormer served by `reconstruct --matcher-arch
+           matchformer --refine-iters 0` (completion only); 0 launches of
+           either pass on every run; reported: warm pairs/s, device ms of
+           a batch, step seconds and peak memory; full report in
+           build/smoke_alt/alt.json
 
 The build phase also builds the native image loader (g++, -ljpeg -lpng)
 and says whether it linked. Any failed check raises (non-zero exit). The
@@ -107,6 +124,7 @@ import torch
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 WEIGHTS = os.path.join(REPO, "weights", "demo_matcher_r5_bf16.msgpack")
+ASPAN_WEIGHTS = os.path.join(REPO, "weights", "demo_aspan_bf16.msgpack")
 
 # Published H100 SXM peaks (NVIDIA data sheet): dense bf16 on the tensor
 # cores and HBM3 bandwidth. The kernels run three bf16 products (hi/lo
@@ -1628,9 +1646,11 @@ JAX_SFM = {'a_known': {'mean_reproj_px': 0.6774333983607213,
 # and seeds (`JAX_PLATFORMS=cpu python tests/test_torch_train.py
 # --record`, 5.3 min there): per verb the step-0 loss and global gradient
 # norm and every step's loss (the bootstraps' later losses as JAX prints
-# them, to 4 decimals). `train` runs JAX's model and optimizer on the
-# port's labels (train/supervision.py: JAX's own but for the reference
-# inputs' rounding ties; `loss0_jax_labels` is JAX's own labels' loss).
+# them, to 4 decimals); and the alt phase's two `train-matcher --arch`
+# runs (`--record --alt`, 162 s and 1566 s there). `train` runs JAX's model
+# and optimizer on the port's labels (train/supervision.py: JAX's own but
+# for the reference inputs' rounding ties; `loss0_jax_labels` is JAX's own
+# labels' loss).
 JAX_TRAIN = {'matcher_selfsup': {'grad_norm0': 1.5227237939834595,
                                  'loss0': 2.1278305053710938,
                                  'losses': [2.1278, 2.3927, 2.0509]},
@@ -1648,6 +1668,24 @@ JAX_TRAIN = {'matcher_selfsup': {'grad_norm0': 1.5227237939834595,
                                   0.8748477101325989],
                        'mask_agreement': 1.0,
                        'ref_inputs_on_other_tie': 172},
+             'train_matcher_aspan': {'grad_norm0': 2.7392783164978027,
+                                     'grad_norms': [2.7392783164978027,
+                                                    3.255051374435425,
+                                                    4.551838397979736],
+                                     'loss0': 1.2697932720184326,
+                                     'losses': [1.2697932720184326,
+                                                1.47820246219635,
+                                                1.122150182723999],
+                                     'matched_rows': 9603},
+             'train_matcher_matchformer': {'grad_norm0': 0.3028630018234253,
+                                           'grad_norms': [0.3028630018234253,
+                                                          0.45164474844932556,
+                                                          1.4658925533294678],
+                                           'loss0': 5.09407377243042,
+                                           'losses': [5.09407377243042,
+                                                      5.084743022918701,
+                                                      5.085999011993408],
+                                           'matched_rows': 9603},
              'train_matcher': {'grad_norm0': 2.284970283508301,
                                'grad_norms': [2.284970283508301,
                                               5.799782752990723,
@@ -2056,10 +2094,13 @@ def _check_model_gates(got, ref, where):
           g["grey_fraction"])
 
 
-def _check_reconstruct_gates(got, ref):
-    """Hold run A of the verb on the card to the JAX CLI's numbers."""
-    check(got["launches"] == {"dsm_pass1": 1, "dsm_pass2": 1},
-          "reconstruct: kernel launches", got["launches"])
+def _check_reconstruct_gates(got, ref, launches=None):
+    """Hold run A of the verb on the card to the JAX CLI's numbers: one
+    launch of each pass (or `launches`), every file, the models' gates
+    and AUC@5 within 0.02."""
+    launches = launches or {"dsm_pass1": 1, "dsm_pass2": 1}
+    check(got["launches"] == launches, "reconstruct: kernel launches",
+          got["launches"], launches)
     check(not got["missing_files"], "reconstruct: files missing",
           got["missing_files"])
     _check_model_gates(got, ref, "reconstruct")
@@ -3265,6 +3306,300 @@ def bf16_phase(params, fp32_main, recon, train):
     return report
 
 
+# ---------------------------------------------------------------------------
+# The alt phase: the other matcher families of models.build_matcher (ASpan
+# with the bundled weights/demo_aspan_bf16.msgpack, MatchFormer from a fresh
+# init) through the engine and the verbs, on the files of the reconstruct
+# and train phases, held to the JAX package's own runs on the CPU:
+# JAX_MAIN_ASPAN (`python tests/test_torch_engine.py --size 832 --arch aspan
+# [--dtype bfloat16]`), JAX_RECONSTRUCT_ASPAN (`python
+# tests/test_torch_pipeline.py --record --arch aspan`, 895 s there) and
+# JAX_TRAIN's `train_matcher_aspan` / `train_matcher_matchformer` (`python
+# tests/test_torch_train.py --record --alt`). Both families match densely
+# (the fused kernels take the LoFTR family's features, as in JAX), so every
+# run of the phase launches neither pass.
+# ---------------------------------------------------------------------------
+
+N_PARAMS_ASPAN = 16464664
+JAX_MAIN_ASPAN = {"float32": (12288, 1.3344341861433873),
+                  "bfloat16": (12288, 1.3335593774495202)}
+JAX_RECONSTRUCT_ASPAN = {'coarse': {'grey_fraction': 0.015,
+                                    'mean_reproj_px': 1.693078216791952,
+                                    'n_observations': 16075,
+                                    'n_points': 6200,
+                                    'registered': ['view_000.png',
+                                                   'view_001.png',
+                                                   'view_002.png',
+                                                   'view_003.png']},
+                         'refined': {'grey_fraction': 0.012749538668008724,
+                                     'mean_reproj_px': 1.2377683076525834,
+                                     'n_observations': 14155,
+                                     'n_points': 5961,
+                                     'registered': ['view_000.png',
+                                                    'view_001.png',
+                                                    'view_002.png',
+                                                    'view_003.png']},
+                         'result': {'n_images': 4,
+                                    'n_observations': 14155,
+                                    'n_points': 5961,
+                                    'n_registered': 4,
+                                    'pose_auc': {
+                                        'auc@1': 0.852544649041707,
+                                        'auc@3': 0.9508482163472358,
+                                        'auc@5': 0.9705089298083414,
+                                        'auc@10': 0.9852544649041708,
+                                        'auc@20': 0.9926272324520854},
+                                    'status': 'ok'}}
+ALT_ARGS = ("--matcher-arch", "aspan", "--matcher-ckpt", ASPAN_WEIGHTS)
+NO_LAUNCHES = {"dsm_pass1": 0, "dsm_pass2": 0}
+
+
+def reset_launches():
+    from detectorfreesfm_tpu_torch.ops import fused_dsm
+
+    for k in fused_dsm.launches:
+        fused_dsm.launches[k] = 0
+
+
+def read_launches():
+    from detectorfreesfm_tpu_torch.ops import fused_dsm
+
+    return dict(fused_dsm.launches)
+
+
+def main_scene():
+    """Main's scene: names, LoadedImages, exhaustive pairs and the true
+    (K, q, t)."""
+    from detectorfreesfm_tpu_torch.data.images import from_array
+    from detectorfreesfm_tpu_torch.data.synthetic import (SyntheticConfig,
+                                                          generate_scene)
+    from detectorfreesfm_tpu_torch.match.pairs import exhaustive_pairs
+
+    imgs, _d, K, q, t = generate_scene(0, SyntheticConfig(size=832,
+                                                          n_views=4))
+    names = [f"view_{i}" for i in range(len(imgs))]
+    images = {n: from_array(imgs[i]) for i, n in enumerate(names)}
+    return names, images, exhaustive_pairs(names), (K, q, t)
+
+
+def forward_ms(model, images, pairs):
+    """Device ms of the model's forward on the first two pairs."""
+    batch = [torch.from_numpy(np.stack([images[p[k]].data for p in pairs[:2]])
+                              [..., None]).cuda() for k in (0, 1)]
+    with torch.no_grad():
+        return cuda_ms(lambda: model(*batch), 3)
+
+
+def alt_main(params, dtype, scene):
+    """ASpan on main's 6 pairs through the engine (batches of 2): valid
+    matches and median epipolar error against JAX_MAIN_ASPAN, launches,
+    warm pairs/s, device ms of one batch's forward, peak memory and a
+    profile of one batch."""
+    from detectorfreesfm_tpu_torch.data.synthetic import (
+        fundamental_matrix, symmetric_epipolar_error)
+    from detectorfreesfm_tpu_torch.match.engine import (EngineConfig,
+                                                        PairMatchingEngine)
+
+    names, images, pairs, (K, q, t) = scene
+    engine = PairMatchingEngine(EngineConfig(
+        matcher="aspan", img_resize=832, batch_size=2, compute_dtype=dtype),
+        params)
+    check(type(engine.model).__name__ == "ASpanMatcher", "alt main model",
+          type(engine.model).__name__)
+    engine.match_pairs(pairs, images)  # warm-up (cuDNN)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.time()
+    raw = engine.match_pairs(pairs, images)
+    torch.cuda.synchronize()
+    warm_s = time.time() - t0
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    batch_ms = forward_ms(engine.model, images, pairs)
+    profile = profile_batch(engine, pairs[:2], images)
+    counts, errs = {}, []
+    for (a, b), m in raw.items():
+        i, j = names.index(a), names.index(b)
+        F = fundamental_matrix(K[i], q[i], t[i], K[j], q[j], t[j])
+        counts[f"{a}-{b}"] = len(m["conf"])
+        errs.append(symmetric_epipolar_error(F, m["kpts0"], m["kpts1"]))
+    jax_valid, jax_median = JAX_MAIN_ASPAN[dtype]
+    out = dict(total_valid=sum(counts.values()), jax_total_valid=jax_valid,
+               median_epipolar_px=float(np.median(np.concatenate(errs))),
+               jax_median_epipolar_px=jax_median, valid_per_pair=counts,
+               launches=launches, warm_s=warm_s,
+               pairs_per_s=len(pairs) / warm_s, batch2_forward_ms=batch_ms,
+               max_memory_allocated_gib=peak, profile_one_batch=profile)
+    check(set(raw) == set(pairs), "alt main: pairs missing")
+    check(all(np.isfinite(m["kpts1"]).all() for m in raw.values()),
+          "alt main: non-finite keypoints")
+    check(out["total_valid"] >= 0.9 * jax_valid, "alt main", dtype,
+          "valid matches", out["total_valid"], jax_valid)
+    check(out["median_epipolar_px"] <= jax_median + 0.5, "alt main", dtype,
+          "epipolar median", out["median_epipolar_px"], jax_median)
+    check(launches == NO_LAUNCHES, "alt main", dtype, "launches", launches)
+    return out
+
+
+def alt_train_argv(data, out, arch):
+    """`train-matcher --arch arch` on the train phase's files, as its
+    train_matcher verb but without --fine; ASpan warm-starts from the
+    bundled file, MatchFormer from a fresh init."""
+    argv = ["train-matcher", "--arch", arch, "--data", data, "--output",
+            os.path.join(out, arch), "--img-resize", "832", "--batch-size",
+            "1", "--max-steps", str(TRAIN_STEPS), "--log-every", "1"]
+    return argv + (["--init-ckpt", ASPAN_WEIGHTS] if arch == "aspan" else [])
+
+
+def _check_alt_train_gates(got, ref):
+    """ASpan starts from JAX's parameters: step 0 and later steps as the
+    train phase's verbs; MatchFormer from other draws: step 0's loss
+    within the fresh tolerance, every loss finite."""
+    g, r = got["aspan"], ref["train_matcher_aspan"]
+    check(_rel(g["losses"][0], r["loss0"]) <= TRAIN_TOL["loss0"],
+          "alt aspan step-0 loss", g["losses"][0], r["loss0"])
+    check(_rel(g["grad_norms"][0], r["grad_norm0"]) <= TRAIN_TOL["grad_norm0"],
+          "alt aspan step-0 gradient norm", g["grad_norms"][0],
+          r["grad_norm0"])
+    for i in range(1, TRAIN_STEPS):
+        check(_rel(g["losses"][i], r["losses"][i]) <= TRAIN_TOL["later"],
+              f"alt aspan step-{i} loss", g["losses"][i], r["losses"][i])
+    g, r = got["matchformer"], ref["train_matcher_matchformer"]
+    check(all(np.isfinite(g["losses"] + g["grad_norms"])),
+          "alt matchformer losses", g["losses"], g["grad_norms"])
+    check(_rel(g["losses"][0], r["loss0"]) <= TRAIN_TOL["fresh"],
+          "alt matchformer step-0 loss", g["losses"][0], r["loss0"])
+
+
+def alt_phase():
+    """The alt phase on the card (see the section comment): (a) ASpan on
+    main's pairs in fp32 and bf16, (b) run A with ASpan, (c) three
+    train-matcher steps of each family, (d) the trained MatchFormer served
+    through the verb. Full report in build/smoke_alt/alt.json."""
+    import contextlib
+    import io
+    import shutil
+
+    from detectorfreesfm_tpu_torch import cli, pipeline
+    from detectorfreesfm_tpu_torch.utils.checkpoint import load_arch_params
+
+    t_phase = time.time()
+    work = os.path.join(REPO, "build", "smoke_alt")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    report, laps = {}, {}
+
+    t0 = time.time()
+    params = load_arch_params(ASPAN_WEIGHTS, "aspan")
+    n_params = sum(v.numel() for k, v in params.items()
+                   if not k.endswith(("running_mean", "running_var")))
+    check(n_params == N_PARAMS_ASPAN, "ASpan parameter count", n_params)
+    report["aspan_n_params"] = n_params
+    main = main_scene()
+    report["main"] = {dt: alt_main(params, dt, main)
+                      for dt in ("float32", "bfloat16")}
+    laps["main_s"] = time.time() - t0
+
+    # (b) Run A's scene and command with ASpan: --fused on means dense.
+    t0 = time.time()
+    scene = os.path.join(REPO, "build", "smoke_reconstruct", "scene")
+    out = os.path.join(work, "out_a")
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    got, run_a = run_reconstruct(cli.main, scene, out, "--fused", "on",
+                                 *ALT_ARGS)
+    got["launches"] = read_launches()
+    got["missing_files"] = written_files(out)
+    (_key, engine), = pipeline._ENGINE_CACHE.items()
+    check(type(engine.model).__name__ == "ASpanMatcher"
+          and not engine.cfg.fused_matching, "run A with ASpan: engine",
+          engine.cfg)
+    pipeline._ENGINE_CACHE.clear()
+    del engine
+    report["run_a"] = dict(
+        run_a, launches=got["launches"],
+        max_memory_allocated_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+        n_registered=got["result"]["n_registered"],
+        n_points=got["result"]["n_points"],
+        pose_auc=got["result"].get("pose_auc"),
+        jax_n_points=JAX_RECONSTRUCT_ASPAN["result"]["n_points"],
+        jax_pose_auc=JAX_RECONSTRUCT_ASPAN["result"]["pose_auc"])
+    laps["run_a_s"] = time.time() - t0
+
+    # (c) Three train-matcher steps of each family on the train phase's
+    # files; the checkpoints read back strictly.
+    t0 = time.time()
+    data = os.path.join(REPO, "build", "smoke_train", "data")
+    report["train"] = {}
+    for arch in ("aspan", "matchformer"):
+        log = os.path.join(work, f"train_{arch}.jsonl")
+        reset_launches()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t1 = time.time()
+        rc = cli.main(alt_train_argv(data, os.path.join(work, "train"),
+                                     arch) + ["--log-json", log])
+        wall = time.time() - t1
+        check(rc == 0, "alt train", arch, "exit code", rc)
+        with open(log) as f:
+            steps = [json.loads(ln) for ln in f]
+        check(len(steps) == TRAIN_STEPS, "alt train", arch, "steps",
+              len(steps))
+        ckpt = os.path.join(work, "train", arch, "matcher_ep0.msgpack")
+        back = load_arch_params(ckpt, arch)
+        secs = [s["seconds"] for s in steps]
+        report["train"][arch] = dict(
+            wall_s=wall, first_step_s=secs[0],
+            steady_median_s=float(np.median(secs[1:])),
+            max_memory_allocated_gib=torch.cuda.max_memory_allocated()
+            / 2 ** 30, losses=[s["loss"] for s in steps],
+            grad_norms=[s["grad_norm"] for s in steps],
+            launches=read_launches(), checkpoint=ckpt,
+            checkpoint_leaves=len(back),
+            jax=JAX_TRAIN[f"train_matcher_{arch}"])
+    laps["train_s"] = time.time() - t0
+
+    # (d) The trained MatchFormer through the verb on run A's scene.
+    t0 = time.time()
+    out_d = os.path.join(work, "out_d")
+    reset_launches()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["reconstruct", "--scene", scene, "--output", out_d,
+                       "--matcher-arch", "matchformer", "--matcher-ckpt",
+                       report["train"]["matchformer"]["checkpoint"],
+                       "--refine-iters", "0"])
+    wall = time.time() - t0
+    launches = read_launches()
+    (_key, engine), = pipeline._ENGINE_CACHE.items()
+    served_by = type(engine.model).__name__
+    mf_ms = forward_ms(engine.model, main[1], main[2])
+    pipeline._ENGINE_CACHE.clear()
+    del engine
+    lines = buf.getvalue().strip().splitlines()
+    report["serve_matchformer"] = dict(
+        rc=rc, result=json.loads(lines[-1]) if lines else None,
+        matches_stored=pipeline.matches_stored(out_d), model=served_by,
+        launches=launches, wall_s=wall, batch2_forward_ms_832px=mf_ms)
+    laps["serve_s"] = time.time() - t0
+    report.update(laps, alt_s=time.time() - t_phase)
+    with open(os.path.join(work, "alt.json"), "w") as f:
+        json.dump(dict(report, got=got), f, indent=1, default=float)
+
+    _check_reconstruct_gates(got, JAX_RECONSTRUCT_ASPAN, NO_LAUNCHES)
+    for arch, g in report["train"].items():
+        check(g["launches"] == NO_LAUNCHES, "alt train", arch, "launches",
+              g["launches"])
+    _check_alt_train_gates(report["train"], JAX_TRAIN)
+    serve = report["serve_matchformer"]
+    check(serve["result"] is not None and serve["matches_stored"]
+          and serve["model"] == "MatchFormerMatcher"
+          and serve["launches"] == NO_LAUNCHES,
+          "alt: the trained MatchFormer through the verb", serve)
+    return report
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3356,6 +3691,9 @@ def main():
     b16 = bf16_phase(params, main_res, recon, train)
     emit({"phase": "bf16", **b16})
 
+    alt = alt_phase()
+    emit({"phase": "alt", **alt})
+
     replaces = {
         "dsm_pass1": "detectorfreesfm_tpu/ops/pallas_dsm.py:98 (_pass1_kernel)",
         "dsm_pass2": "detectorfreesfm_tpu/ops/pallas_dsm.py:160 "
@@ -3382,7 +3720,14 @@ def main():
                 "bf16_main": b16["main"]["launches"][kname],
                 "bf16_reconstruct_a": b16["run_a"]["launches"][kname],
                 **{f"bf16_train_{n}": g["launches"][kname]
-                   for n, g in b16["train"].items()}},
+                   for n, g in b16["train"].items()},
+                **{f"alt_main_{dt}": g["launches"][kname]
+                   for dt, g in alt["main"].items()},
+                "alt_reconstruct_a": alt["run_a"]["launches"][kname],
+                **{f"alt_train_{a}": g["launches"][kname]
+                   for a, g in alt["train"].items()},
+                "alt_serve_matchformer": alt["serve_matchformer"][
+                    "launches"][kname]},
             "shape": verb_k["shape"],
             "max_abs_err": k["max_abs_err"], "ms": k["ms"],
             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],

@@ -42,6 +42,13 @@ verb, with one resuming retry after a crash or a --scene-timeout.
 and `--dtype-train bfloat16` (train-matcher, train-matcher-selfsup) trains
 it in bf16 on fp32 parameters, as the JAX verbs do; float32 is the
 default, and refinement stays float32 (models/loftr.py).
+
+`--matcher-arch aspan|matchformer --matcher-ckpt CKPT` (reconstruct,
+eval-dataset) matches with another family of models.build_matcher, dense
+whatever --fused says, as in JAX; these families have no bundled default
+(weights/demo_aspan_bf16.msgpack is an ASpan checkpoint), so the
+checkpoint must be named. `train-matcher --arch aspan|matchformer` trains
+them with the coarse focal loss, from a fresh init or --init-ckpt.
 """
 
 from __future__ import annotations
@@ -98,7 +105,7 @@ def _bundled_weight(name: str):
 
 def _run_scene(args) -> dict:
     from .device import resolve_device
-    from .match.engine import LOFTR_FAMILY
+    from .models import LOFTR_FAMILY
     from .pipeline import (
         PipelineConfig,
         evaluate_scene_poses,
@@ -189,17 +196,18 @@ def _run_scene(args) -> dict:
             )
         print(f"using bundled matcher weights: {matcher_ckpt}",
               file=sys.stderr)
-    try:
-        engine_cfg = cfg.engine_config()
-    except NotImplementedError as e:
-        raise SystemExit(str(e)) from None
-    if matcher_ckpt:
+    if matcher_ckpt and arch in LOFTR_FAMILY:
         from .utils.checkpoint import load_matcher_params
 
         # The load template must match the engine's parameters: with
         # --match-type coarse_fine the checkpoint's fine head is loaded.
         matcher_params = load_matcher_params(
-            matcher_ckpt, cfg=engine_cfg.matcher_config())
+            matcher_ckpt, cfg=cfg.engine_config().matcher_config())
+    elif matcher_ckpt:
+        from .utils.checkpoint import load_arch_params
+
+        # ASpan / MatchFormer: the file held strictly to the arch's model.
+        matcher_params = load_arch_params(matcher_ckpt, arch)
     refiner_params = None
     refiner_ckpt = getattr(args, "refiner_ckpt", None)
     if refiner_ckpt is None and args.refine_iters > 0:
@@ -450,7 +458,7 @@ def cmd_train_matcher(args) -> int:
                           backbone_path="backbone"))
     try:
         trainer = MatcherTrainer(cfg, device=args.device)
-    except NotImplementedError as e:
+    except ValueError as e:  # --fine with a matcher that has no fine stage
         raise SystemExit(str(e)) from None
     return _train_loop(args, trainer, datasets, sampler, tuple_to_pair_batch,
                        lambda step: (), "matcher_ep{epoch}.msgpack")
@@ -564,8 +572,8 @@ def main(argv=None) -> int:
         sp.add_argument("--matcher-arch", default="loftr",
                         dest="matcher_arch",
                         choices=["loftr", "aspan", "matchformer"],
-                        help="matcher architecture family (only loftr is "
-                             "ported)")
+                        help="matcher architecture family (alt archs need "
+                             "an explicit --matcher-ckpt)")
         sp.add_argument("--refiner-ckpt", default=None, dest="refiner_ckpt",
                         help="trained refiner checkpoint (.msgpack)")
         sp.add_argument("--min-inliers", type=int, default=30,
@@ -658,7 +666,7 @@ def main(argv=None) -> int:
                          "--match-type coarse_fine at inference)")
     sm.add_argument("--arch", default="loftr",
                     choices=["loftr", "aspan", "matchformer"],
-                    help="matcher family to train (only loftr is ported)")
+                    help="matcher family to train")
     _add_train_io(sm)
     sm.set_defaults(fn=cmd_train_matcher)
 

@@ -3,7 +3,11 @@
 Port of the JAX package's match/engine.py. The mesh becomes a plain batch:
 pairs are staged on the host into a fixed square frame, stacked into
 batches of `batch_size` (the last one padded with repeats, whose results are
-dropped), and run through one DetectorFreeMatcher forward each. Variable
+dropped), and run through one matcher forward each: DetectorFreeMatcher for
+the LoFTR family, or the ASpan and MatchFormer matchers of
+models.build_matcher, built as JAX builds them (threshold, capacity and
+compute dtype; the fine stage and the fused kernels are the LoFTR
+family's). Variable
 match counts come back as fixed-capacity slots with validity masks; the
 conversion to original pixels, the optional rounding to a pixel grid and
 the scene-level keypoint merge (ops/grid_merge.py) run on the host.
@@ -20,16 +24,14 @@ import torch
 
 from ..data.images import LoadedImage, load_gray
 from ..device import compute_dtype, resolve_device
+from ..models import LOFTR_FAMILY, MATCHER_NAMES, build_matcher
 from ..models.loftr import DetectorFreeMatcher, MatcherConfig
 from ..ops.grid_merge import merge_matches_to_keypoints
 
 
-LOFTR_FAMILY = ("loftr", "loftr_official", "detectorfree")
-
-
 @dataclasses.dataclass(frozen=True)
 class EngineConfig:
-    matcher: str = "loftr"         # the LoFTR family only (see __post_init__)
+    matcher: str = "loftr"         # a models.build_matcher name
     img_resize: int = 832          # padded square frame (long-side cap)
     df: int = 8                    # divisor for the 1/8 grid
     batch_size: int = 1            # pairs per forward
@@ -41,13 +43,11 @@ class EngineConfig:
     fine_enabled: bool = False     # coarse_fine match type
 
     def __post_init__(self):
-        # The JAX engine's other matchers are not ported: refuse rather
-        # than run LoFTR in their place. A compute dtype other than
-        # float32 and bfloat16 raises too (JAX would run it in fp32).
-        if self.matcher not in LOFTR_FAMILY:
-            raise NotImplementedError(
-                f"matcher {self.matcher!r} is not ported yet (ROADMAP item "
-                f"15); the port runs the LoFTR family {LOFTR_FAMILY}")
+        # An unknown matcher name raises here, before any work; so does a
+        # compute dtype other than float32 and bfloat16 (JAX would run it
+        # in fp32).
+        if self.matcher.lower() not in MATCHER_NAMES:
+            raise ValueError(f"unknown matcher '{self.matcher}'")
         compute_dtype(self.compute_dtype)
 
     def matcher_config(self) -> MatcherConfig:
@@ -70,14 +70,22 @@ class PairMatchingEngine:
         self.device = resolve_device(device)
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(0)  # random init only; weights overwrite it
-            self.model = DetectorFreeMatcher(cfg.matcher_config())
+            if cfg.matcher in LOFTR_FAMILY:
+                self.model = DetectorFreeMatcher(cfg.matcher_config())
+            else:
+                mc = cfg.matcher_config()
+                self.model = build_matcher(
+                    cfg.matcher, match_threshold=mc.match_threshold,
+                    max_matches=mc.max_matches,
+                    compute_dtype=mc.compute_dtype)
         if params is None:
             # Random weights give noise that looks like a pipeline bug
             # downstream; make it impossible to miss.
             print("WARNING: PairMatchingEngine initialized with RANDOM "
                   "matcher weights (params=None) - matches will be noise. "
                   "Pass trained params (utils.checkpoint."
-                  "load_matcher_params).", file=sys.stderr)
+                  "load_matcher_params or load_arch_params).",
+                  file=sys.stderr)
         else:
             self.model.load_state_dict(params)
         self.model.to(self.device).eval()

@@ -1,0 +1,39 @@
+"""Model zoo: the coarse matcher families and the refinement matcher.
+
+`build_matcher(name, **overrides)` is the port of the JAX package's
+models/__init__.py: the matcher module of a family, with keyword overrides
+applied to its config dataclass. Every matcher keeps one contract:
+(image0, image1[, valid_hw0, valid_hw1], return_conf=) -> MatchOutput, and
+the dense (B, L, S) confidence too with `return_conf`.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+LOFTR_FAMILY = ("loftr", "loftr_official", "detectorfree")
+ASPAN_NAMES = ("aspan", "aspanformer")
+MATCHFORMER_NAMES = ("matchformer",)
+MATCHER_NAMES = LOFTR_FAMILY + ASPAN_NAMES + MATCHFORMER_NAMES
+
+
+def build_matcher(name: str = "loftr", **overrides):
+    """The matcher module for `name` (case-insensitive): "loftr" (and its
+    aliases "loftr_official", "detectorfree"), "aspan" ("aspanformer") or
+    "matchformer". Another name raises ValueError."""
+    name = name.lower()
+    if name in LOFTR_FAMILY:
+        from .loftr import DetectorFreeMatcher, MatcherConfig
+
+        return DetectorFreeMatcher(
+            dataclasses.replace(MatcherConfig(), **overrides))
+    if name in ASPAN_NAMES:
+        from .aspan import ASpanConfig, ASpanMatcher
+
+        return ASpanMatcher(dataclasses.replace(ASpanConfig(), **overrides))
+    if name in MATCHFORMER_NAMES:
+        from .matchformer import MatchFormerConfig, MatchFormerMatcher
+
+        return MatchFormerMatcher(
+            dataclasses.replace(MatchFormerConfig(), **overrides))
+    raise ValueError(f"unknown matcher '{name}'")

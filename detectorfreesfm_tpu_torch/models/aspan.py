@@ -1,0 +1,169 @@
+"""ASpanFormer-class coarse matcher: flow-guided windowed attention.
+
+Port of `ASpanConfig`, `FlowHead`, `FlowCrossAttention` and `ASpanMatcher`
+from the JAX package's models/aspan.py. The LoFTR backbone and position
+encoding feed `n_flow_layers` rounds of: linear self-attention in each
+image, a flow head per image (where each cell lands in the other image:
+the expected position under a low-rank global softmax, plus a learned
+residual), and cross-attention restricted to the (2r+1)^2 cells around
+each query's flow target. Matching is the dense dual-softmax; the fused
+kernels serve the LoFTR family only, as in JAX. Same I/O contract as
+DetectorFreeMatcher (models/loftr.py), without the fine stage.
+
+The window is discrete: the flow target is clipped to the grid, the
+window's cells rounded (half to even, in both packages) and clipped again,
+so a flow one ulp from JAX's can move a whole window cell.
+
+`compute_dtype="bfloat16"` is JAX's bf16 path (models/layers.py): the
+backbone, the projections and the residual stream in bf16; the flow
+head's similarity, softmax and expectation, and the window attention's
+logits and softmax in fp32 (JAX's `preferred_element_type=float32`), the
+softmax rounded to bf16 before it weights the values.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+from torch import nn
+
+from ..device import set_backends
+from .backbone import ResNetFPN_8_2
+from .layers import Linear
+from .loftr import MatcherConfig, dense_match, grid_valid
+from .position_encoding import add_position_encoding
+from .transformer import EncoderLayer
+
+
+@dataclasses.dataclass(frozen=True)
+class ASpanConfig(MatcherConfig):
+    span_radius: int = 2          # (2r+1)^2 attended cells around the target
+    n_flow_layers: int = 4        # (self, flow, cross) rounds
+
+
+def _grid_xy(l: int, w: int, device):
+    """(L, 2) float32 (col, row) of each flat cell of a width-w grid."""
+    pos = torch.arange(l, device=device, dtype=torch.float32)
+    return torch.stack([pos % w, torch.div(pos, w, rounding_mode="floor")],
+                       dim=-1)
+
+
+class FlowHead(nn.Module):
+    """Per-cell flow into the other image: the softmax-expected position
+    of a 64-d similarity, minus the cell's own, plus a learned residual."""
+
+    def __init__(self, d_model: int = 256,
+                 compute_dtype: torch.dtype = torch.float32):
+        super().__init__()
+        dt = compute_dtype
+        self.proj_q = Linear(d_model, 64, bias=False, compute_dtype=dt)
+        self.proj_k = Linear(d_model, 64, bias=False, compute_dtype=dt)
+        self.delta = Linear(d_model, 2, compute_dtype=dt)
+
+    def forward(self, x, source, hw):
+        """x, source: (B, L, C) on an (h, w) grid -> (B, L, 2) float32
+        (dx_col, dy_row) cell offsets."""
+        l, w = x.shape[1], hw[1]
+        sim = torch.bmm(self.proj_q(x).float(),
+                        self.proj_k(source).float().transpose(1, 2))
+        p = torch.softmax(sim.div_(8.0), dim=-1)          # (B, L, L) fp32
+        # The expectation as one product with the (L, 2) cell coordinates:
+        # p * cols would be a second (B, L, L) tensor.
+        grid = _grid_xy(l, w, x.device)
+        flow = torch.matmul(p, grid) - grid
+        return flow + self.delta(x).float()
+
+
+class FlowCrossAttention(EncoderLayer):
+    """Cross-attention over the (2r+1)^2 window around each query's flow
+    target; the EncoderLayer's projections, merge and feed-forward."""
+
+    def __init__(self, d_model: int, nhead: int, radius: int,
+                 compute_dtype: torch.dtype = torch.float32):
+        super().__init__(d_model, nhead, "linear", compute_dtype)
+        self.radius = radius
+
+    def window_cells(self, flow, hw):
+        """(B, L, K2) int64 flat cells of each query's window, row-major
+        over (dy, dx), from (B, L, 2) float32 flow."""
+        b, l = flow.shape[:2]
+        h, w = hw
+        r = self.radius
+        here = _grid_xy(l, w, flow.device)
+        cx = (here[:, 0] + flow[..., 0]).clamp(0, w - 1)
+        cy = (here[:, 1] + flow[..., 1]).clamp(0, h - 1)
+        offs = torch.arange(-r, r + 1, device=flow.device,
+                            dtype=torch.float32)
+        gx = torch.round(cx[..., None, None] + offs).clamp(0, w - 1)
+        gy = torch.round(cy[..., None, None] + offs[:, None]).clamp(0, h - 1)
+        return (gy * w + gx).long().reshape(b, l, -1)
+
+    def forward(self, x, source, hw, flow):
+        """x: (B, L, C) queries on an (h, w) grid; source: (B, L, C) on the
+        same grid; flow: (B, L, 2) predicted (dx_col, dy_row) offsets."""
+        b, l, d = x.shape
+        hn = self.nhead
+        dim = d // hn
+        cells = self.window_cells(flow, hw)
+        kk = cells.shape[-1]
+        # Projecting the source, then gathering its rows, is the dense
+        # layer on the gathered window row by row (25x fewer products).
+        idx = cells.reshape(b, l * kk, 1).expand(-1, -1, d)
+
+        def window(t):
+            return torch.gather(t, 1, idx).reshape(b, l, kk, hn, dim)
+
+        q = self.q_proj(x).reshape(b, l, hn, dim)
+        k = window(self.k_proj(source))
+        v = window(self.v_proj(source))
+        logits = torch.einsum("blhd,blkhd->blhk", q.float(), k.float())
+        attn = torch.softmax(logits / math.sqrt(dim), dim=-1).to(v.dtype)
+        msg = torch.einsum("blhk,blkhd->blhd", attn.float(), v.float())
+        return self.update(x, msg.to(v.dtype).reshape(b, l, d))
+
+
+class ASpanMatcher(nn.Module):
+    """Flow-guided coarse matcher; DetectorFreeMatcher's interface."""
+
+    def __init__(self, cfg: ASpanConfig = ASpanConfig()):
+        super().__init__()
+        set_backends(cfg.compute_dtype)  # as DetectorFreeMatcher
+        self.cfg = cfg
+        dt, d, nh = cfg.dtype, cfg.d_coarse, cfg.nhead
+        self.backbone = ResNetFPN_8_2(compute_dtype=dt)
+        for i in range(cfg.n_flow_layers):
+            for s in (0, 1):
+                self.add_module(f"self{s}_{i}",
+                                EncoderLayer(d, nh, "linear", dt))
+                self.add_module(f"flow{s}_{i}", FlowHead(d, dt))
+                self.add_module(f"cross{s}_{i}", FlowCrossAttention(
+                    d, nh, cfg.span_radius, dt))
+
+    def forward(self, image0, image1, valid_hw0=None, valid_hw1=None,
+                return_conf: bool = False):
+        """image0/1: (B, H, W, 1) in [0, 1]; valid_hw: (B, 2) int (h, w)
+        live region at full res, optional. Returns the MatchOutput, and
+        the dense (B, L, S) confidence too with `return_conf`."""
+        cfg = self.cfg
+        b, h, wd = image0.shape[:3]
+        h8, w8 = h // 8, wd // 8
+        both = torch.cat([image0, image1], dim=0).to(cfg.dtype).permute(
+            0, 3, 1, 2)
+        coarse, _ = self.backbone(both, fine=False)
+        coarse = add_position_encoding(coarse.permute(0, 2, 3, 1)).reshape(
+            2 * b, h8 * w8, cfg.d_coarse)
+        c0, c1 = coarse[:b], coarse[b:]
+        mask0 = grid_valid(valid_hw0, b, h8, w8, cfg.border, image0.device)
+        mask1 = grid_valid(valid_hw1, b, h8, w8, cfg.border, image0.device)
+        hw = (h8, w8)
+        for i in range(cfg.n_flow_layers):
+            layer = lambda name: getattr(self, f"{name}_{i}")  # noqa: E731
+            c0 = layer("self0")(c0, c0, mask0, mask0)
+            c1 = layer("self1")(c1, c1, mask1, mask1)
+            flow0 = layer("flow0")(c0, c1, hw)
+            flow1 = layer("flow1")(c1, c0, hw)
+            c0, c1 = (layer("cross0")(c0, c1, hw, flow0),
+                      layer("cross1")(c1, c0, hw, flow1))
+        return dense_match(c0, c1, mask0, mask1, cfg, w8, return_conf)

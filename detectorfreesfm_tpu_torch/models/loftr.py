@@ -74,6 +74,35 @@ class MatchOutput(NamedTuple):
     valid: torch.Tensor    # (B, K) bool
 
 
+def grid_valid(valid_hw, b: int, h8: int, w8: int, border: int, device):
+    """(B, h8 * w8) bool: the coarse cells that may match, `border` cells
+    in from the frame's edge, or from each pair's live region (valid_hw,
+    (B, 2) int (h, w) at full res) where one is given."""
+    if valid_hw is None:
+        return border_mask(h8, w8, border, device=device)[None].expand(b, -1)
+    vs = torch.as_tensor(valid_hw, device=device) // 8
+    return border_mask(h8, w8, border, vs[:, 0], vs[:, 1], device=device)
+
+
+def cells_to_xy(idx, w8: int):
+    """Flat 1/8 grid cells -> full-res pixels (the cell's top-left * 8)."""
+    return torch.stack([(idx % w8).float() * 8.0,
+                        (idx // w8).float() * 8.0], dim=-1)
+
+
+def dense_match(c0, c1, mask0, mask1, cfg, w8: int,
+                return_conf: bool = False):
+    """Dense dual-softmax + mutual-NN top-K on fp32 copies of the coarse
+    features (B, L, C): the MatchOutput, and the (B, L, S) confidence too
+    with `return_conf`. The head of the coarse-only matchers."""
+    conf = dual_softmax_confidence(c0.float(), c1.float(), mask0, mask1,
+                                   cfg.dsoftmax_temperature)
+    m = extract_topk_matches(conf, cfg.match_threshold, cfg.max_matches)
+    out = MatchOutput(cells_to_xy(m.idx0, w8), cells_to_xy(m.idx1, w8),
+                      m.conf, m.valid)
+    return (out, conf) if return_conf else out
+
+
 class FinePreprocessAndMatch(nn.Module):
     """5x5-window fine refinement of image1 coordinates at coarse matches."""
 
@@ -156,16 +185,8 @@ class DetectorFreeMatcher(nn.Module):
         coarse = add_position_encoding(coarse).reshape(2 * b, h8 * w8, -1)
         c0, c1 = coarse[:b], coarse[b:]
 
-        def grid_valid(valid_hw):
-            if valid_hw is None:
-                m = border_mask(h8, w8, cfg.border, device=image0.device)
-                return m[None].expand(b, -1)
-            vs = torch.as_tensor(valid_hw, device=image0.device) // 8
-            return border_mask(h8, w8, cfg.border, vs[:, 0], vs[:, 1],
-                               device=image0.device)
-
-        mask0 = grid_valid(valid_hw0)
-        mask1 = grid_valid(valid_hw1)
+        mask0 = grid_valid(valid_hw0, b, h8, w8, cfg.border, image0.device)
+        mask1 = grid_valid(valid_hw1, b, h8, w8, cfg.border, image0.device)
         c0, c1 = self.coarse_transformer(c0, c1, mask0, mask1)
 
         conf = None
@@ -180,13 +201,8 @@ class DetectorFreeMatcher(nn.Module):
             matches = extract_topk_matches(conf, cfg.match_threshold,
                                            cfg.max_matches)
 
-        # Grid cells -> full-res pixels (cell top-left * 8).
-        def to_xy(idx):
-            return torch.stack([(idx % w8).float() * 8.0,
-                                (idx // w8).float() * 8.0], dim=-1)
-
-        xy0 = to_xy(matches.idx0)
-        xy1 = to_xy(matches.idx1)
+        xy0 = cells_to_xy(matches.idx0, w8)
+        xy1 = cells_to_xy(matches.idx1, w8)
         if cfg.fine_enabled:
             delta, _std = self.fine_match(fine[:b], fine[b:], matches, w8)
             xy1 = xy1 + delta

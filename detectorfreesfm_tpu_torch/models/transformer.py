@@ -47,8 +47,12 @@ class EncoderLayer(nn.Module):
         k = self.k_proj(source).reshape(b, s, h, d // h)
         v = self.v_proj(source).reshape(b, s, h, d // h)
         msg = self.attn(q, k, v, q_mask=x_mask, kv_mask=source_mask)
-        msg = self.merge(msg.reshape(b, l, d))
-        msg = self.norm1(torch.cat([x, msg], dim=-1))
+        return self.update(x, msg.reshape(b, l, d))
+
+    def update(self, x, msg):
+        """The merge projection, LayerNorm over [x, msg], the concat-MLP
+        and the residual add, on the attention's (B, L, C) message."""
+        msg = self.norm1(torch.cat([x, self.merge(msg)], dim=-1))
         msg = self.mlp2(F.relu(self.mlp1(msg)))
         return x + self.norm2(msg)
 

@@ -44,8 +44,9 @@ from .data.h5io import load_h5, save_h5, stored_path
 from .data.images import image_size, load_gray
 from .device import resolve_device
 from .eval.pose_auc import DEFAULT_THRESHOLDS
-from .match.engine import LOFTR_FAMILY, EngineConfig, PairMatchingEngine
+from .match.engine import EngineConfig, PairMatchingEngine
 from .match.pairs import exhaustive_pairs, sequential_pairs
+from .models import LOFTR_FAMILY
 from .refine.loop import RefineConfig, refine_reconstruction
 from .sfm.mapper import IncrementalMapper, MapperConfig
 from .sfm.reconstruction import Reconstruction
@@ -60,7 +61,7 @@ _ENGINE_CACHE: dict = {}
 @dataclasses.dataclass
 class PipelineConfig:
     # matching
-    matcher: str = "loftr"  # the LoFTR family (EngineConfig refuses others)
+    matcher: str = "loftr"  # models.build_matcher: loftr, aspan, matchformer
     img_resize: int = 832
     match_threshold: float = 0.2
     max_matches: int = 2048
@@ -107,6 +108,8 @@ class PipelineConfig:
             max_matches=self.max_matches, batch_size=self.batch_size,
             round_matches_ratio=round_ratio,
             compute_dtype=self.compute_dtype,
+            # The fused kernels take the LoFTR family's coarse features;
+            # ASpan and MatchFormer match densely, as in JAX.
             fused_matching=self.fused_matching and self.matcher in
             LOFTR_FAMILY,
             fine_enabled=fine,

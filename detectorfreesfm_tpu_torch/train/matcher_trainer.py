@@ -15,8 +15,12 @@ With `matcher.compute_dtype="bfloat16"` the forward runs in bf16 as JAX's
 does (models/loftr.py); the loss still reads the fp32 dense confidence,
 and parameters, gradients and Adam's state stay fp32.
 
-Only the LoFTR family is ported (ROADMAP item 15 for ASpan and
-MatchFormer).
+`arch` "aspan" or "matchformer" trains that family of models.build_matcher
+(built as JAX builds it: threshold, capacity and compute dtype from
+`matcher`) with the same coarse focal loss on its dense confidence. Those
+models have no fine stage: JAX's trainer fails at its first step with
+`fine_enabled` (the model takes no `fine_at`), and this one refuses the
+config when it is constructed.
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..models import LOFTR_FAMILY, build_matcher
 from ..models.loftr import DetectorFreeMatcher, MatcherConfig
 from ..utils import checkpoint
 from .losses import coarse_focal_loss, fine_l2_std_loss
@@ -35,12 +40,9 @@ from .optimizers import OptimConfig, build_optimizer
 from .supervision import stable_top_k
 from .trainer import (TrainState, as_device, init_leaves, value_and_grad)
 
-LOFTR_FAMILY = ("loftr", "loftr_official", "detectorfree")
-
-
 @dataclasses.dataclass(frozen=True)
 class MatcherTrainConfig:
-    arch: str = "loftr"
+    arch: str = "loftr"  # loftr | aspan | matchformer (build_matcher)
     matcher: MatcherConfig = MatcherConfig()
     optim: OptimConfig = OptimConfig(backbone_path="backbone")
     grid: int = 8
@@ -65,16 +67,23 @@ class MatcherTrainer:
 
     def __init__(self, cfg: MatcherTrainConfig = MatcherTrainConfig(),
                  device=None):
-        if cfg.arch not in LOFTR_FAMILY:
-            raise NotImplementedError(
-                f"matcher arch {cfg.arch!r} is not ported (ROADMAP item 15); "
-                f"train one of {LOFTR_FAMILY}")
         self.cfg = cfg
         self.device = resolve_device(device)
-        self.model = DetectorFreeMatcher(cfg.matcher)
-        # flax builds no fine head unless the fine stage is on.
-        self.exclude = () if cfg.matcher.fine_enabled else (
-            checkpoint.FINE_PREFIX,)
+        mc = cfg.matcher
+        if cfg.arch in LOFTR_FAMILY:
+            self.model = DetectorFreeMatcher(mc)
+            # flax builds no fine head unless the fine stage is on.
+            self.exclude = () if mc.fine_enabled else (
+                checkpoint.FINE_PREFIX,)
+        else:
+            if mc.fine_enabled:
+                raise ValueError(
+                    f"matcher arch {cfg.arch!r} has no fine stage: train it "
+                    f"without the fine stage (--fine)")
+            self.model = build_matcher(
+                cfg.arch, match_threshold=mc.match_threshold,
+                max_matches=mc.max_matches, compute_dtype=mc.compute_dtype)
+            self.exclude = ()
         self.history = []
 
     def init_state(self, sample_batch=None) -> TrainState:
@@ -141,7 +150,11 @@ class MatcherTrainer:
         """Warm-start from a trainer or bootstrap checkpoint: every leaf of
         the template that the file holds is loaded (cast to fp32; a shape
         mismatch raises), leaves it lacks keep their fresh values with JAX's
-        warning, and leaves the template lacks are dropped."""
+        warning, and leaves the template lacks are dropped. ASpan and
+        MatchFormer checkpoints load strictly (load_arch_params)."""
+        if self.cfg.arch not in LOFTR_FAMILY:
+            return {k: v.to(self.device) for k, v in
+                    checkpoint.load_arch_params(path, self.cfg.arch).items()}
         src = checkpoint.read_variables(path)
         missing = []
 

@@ -1,7 +1,8 @@
 """Flax msgpack checkpoints <-> the port's state_dicts.
 
-Counterpart of the JAX package's train/selfsup.py `load_matcher_params` and
-train/refiner_selfsup.py `load_refiner_params`, and of the trainers'
+Counterpart of the JAX package's train/selfsup.py `load_matcher_params`,
+train/refiner_selfsup.py `load_refiner_params` and the JAX CLI's restore
+of the other matcher families (`load_arch_params`), and of the trainers'
 `serialization.to_bytes` writers (`save_checkpoint`, through
 `state_dict_to_flax_variables`, the inverse map).
 The checkpoint is decoded with the pure-Python utils/msgpack_lite.py, and
@@ -207,6 +208,23 @@ def load_matcher_params(path: str, cfg=None) -> Dict[str, torch.Tensor]:
         print(f"warning: checkpoint {path} lacks {len(missing)} subtrees "
               f"(kept at random init): {missing[:4]}")
     state.update(fresh_fine_head(cfg))
+    return state
+
+
+def load_arch_params(path: str, arch: str) -> Dict[str, torch.Tensor]:
+    """The state_dict of `arch`'s matcher (models.build_matcher, any name
+    but the LoFTR family's, whose loader is load_matcher_params) from a
+    flax checkpoint, as the JAX CLI restores ASpan and MatchFormer
+    checkpoints into a template of the model (whose leaves do not depend
+    on the compute dtype). Strict: a leaf the template lacks, or a
+    parameter the file lacks, raises (so does a checkpoint of another
+    arch)."""
+    from ..models import build_matcher
+
+    state = flax_variables_to_state_dict(read_variables(path))
+    with torch.device("meta"):
+        template = build_matcher(arch).state_dict()
+    match_state_dict(state, template)
     return state
 
 

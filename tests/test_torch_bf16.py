@@ -76,10 +76,13 @@ def f64(x):
     return np.asarray(np.asarray(x, np.float32), np.float64).ravel()
 
 
-def bf16_errors(port16, jax16, jax32, port32=None):
+def bf16_errors(port16, jax16, jax32, port32=None, gap=1.0):
     """(e(port16, jax16), e(port16, jax32), e(jax16, jax32)); asserts (1)
     and (2), or for a scalar the unit roundoff, and, with port32, that
-    port16 is not port32."""
+    port16 is not port32. `gap` > 1 widens (1) for a model that amplifies
+    one-ulp differences of accumulation order until the two bf16 runs are
+    independent draws of the same rounding noise (sqrt(2) apart at most);
+    a test that passes it says why."""
     p, j, r = f64(port16), f64(jax16), f64(jax32)
     n = np.linalg.norm(r)
     e = (np.linalg.norm(p - j) / n, np.linalg.norm(p - r) / n,
@@ -89,7 +92,7 @@ def bf16_errors(port16, jax16, jax32, port32=None):
     if p.size == 1:
         assert e[0] <= 2.0 ** -8, e
     else:
-        assert e[0] <= e[2] and e[1] <= 1.5 * e[2], e
+        assert e[0] <= gap * e[2] and e[1] <= 1.5 * e[2], e
     if port32 is not None:
         assert np.linalg.norm(p - f64(port32)) > 0, "port bf16 ran in fp32"
     return e

@@ -69,19 +69,24 @@ def test_verb_equals_jax_cli(tmp_path):
 
 
 
+R5 = os.path.join(REPO, "weights", "demo_matcher_r5_bf16.msgpack")
+
+
 @pytest.mark.parametrize("extra,match", [
     (["--matcher-arch", "aspan"], "needs an explicit --matcher-ckpt"),
-    (["--matcher-arch", "aspan", "--matcher-ckpt", "x.msgpack"],
-     "ROADMAP item 15"),
-    (["--matcher-arch", "matchformer", "--matcher-ckpt", "x.msgpack"],
-     "ROADMAP item 15"),
+    (["--matcher-arch", "aspan", "--matcher-ckpt", R5], "does not fit"),
+    (["--matcher-arch", "matchformer", "--matcher-ckpt",
+      chip_smoke.ASPAN_WEIGHTS], "does not fit"),
 ])
 def test_verb_refuses_what_is_not_ported(tmp_path, extra, match):
-    """Another matcher raises before any work, naming its ROADMAP item;
-    none runs LoFTR in its place."""
+    """As the JAX verb: another family without --matcher-ckpt exits (the
+    bundled defaults are LoFTR's); a checkpoint of another family raises
+    ValueError from the strict loader. Both before any work; none runs
+    LoFTR in the named family's place."""
     scene = tmp_path / "scene"
     chip_smoke.write_scene(str(scene), size=64, n_views=2)
-    with pytest.raises(SystemExit, match=match):
+    error = ValueError if "--matcher-ckpt" in extra else SystemExit
+    with pytest.raises(error, match=match):
         port_cli.main(["reconstruct", "--scene", str(scene), "--output",
                        str(tmp_path / "out"), "--device", "cpu", *extra])
     assert not (tmp_path / "out").exists()
@@ -90,8 +95,16 @@ def test_verb_refuses_what_is_not_ported(tmp_path, extra, match):
 def test_engine_and_pipeline_configs_refuse_what_is_not_ported():
     from detectorfreesfm_tpu_torch.match.engine import EngineConfig
 
-    with pytest.raises(NotImplementedError, match="item 15"):
-        EngineConfig(matcher="matchformer")
+    # Every family of build_matcher is ported; an unknown name raises.
+    for name in ("loftr", "aspan", "matchformer"):
+        assert EngineConfig(matcher=name).matcher == name
+    with pytest.raises(ValueError, match="unknown matcher"):
+        EngineConfig(matcher="superglue")
+    # --fused on keeps the alt families dense, as in JAX.
+    for name, fused in (("aspan", False), ("matchformer", False),
+                        ("loftr", True)):
+        assert TP.PipelineConfig(matcher=name, fused_matching=True
+                                 ).engine_config().fused_matching == fused
     # bf16 compute is ported: the config reaches the matcher's, and a
     # dtype that JAX would run in fp32 raises.
     bf16 = TP.PipelineConfig(compute_dtype="bfloat16").engine_config()
@@ -103,6 +116,68 @@ def test_engine_and_pipeline_configs_refuse_what_is_not_ported():
     cfg = TP.PipelineConfig(match_type="coarse_fine", fused_matching=True)
     assert cfg.engine_config() == EngineConfig(
         round_matches_ratio=4, fused_matching=True, fine_enabled=True)
+
+
+def test_aspan_verb_with_fused_on_matches_densely(tmp_path, monkeypatch):
+    """`--matcher-arch aspan` with the bundled ASpan file and `--fused on`:
+    the engine builds ASpan and matches densely (JAX's rule for the other
+    families, not a fallback): no kernel wrapper and no fused extraction
+    is reached, and the scene's three views register."""
+    from detectorfreesfm_tpu_torch.models import loftr
+    from detectorfreesfm_tpu_torch.ops import fused_dsm
+
+    def refuse(*a, **k):
+        raise AssertionError("the fused path was reached")
+
+    for mod, name in ((fused_dsm, "fused_extract_matches"),
+                      (fused_dsm, "dsm_pass1"), (fused_dsm, "dsm_pass2"),
+                      (loftr, "fused_extract_matches")):
+        monkeypatch.setattr(mod, name, refuse)
+    scene = tmp_path / "scene"
+    chip_smoke.write_scene(str(scene), size=256, n_views=3)
+    got, run = chip_smoke.run_reconstruct(
+        port_cli.main, str(scene), str(tmp_path / "out"), "--device", "cpu",
+        "--fused", "on", "--img-resize", "176", "--refine-iters", "0",
+        "--matcher-arch", "aspan", "--matcher-ckpt",
+        chip_smoke.ASPAN_WEIGHTS)
+    (_key, engine), = TP._ENGINE_CACHE.items()
+    TP._ENGINE_CACHE.clear()
+    assert type(engine.model).__name__ == "ASpanMatcher"
+    assert not engine.cfg.fused_matching and engine.cfg.matcher == "aspan"
+    assert got["result"]["status"] == "ok"
+    assert got["result"]["n_registered"] == 3
+    assert got["coarse"]["n_points"] > 100
+
+
+def test_engine_cache_keeps_one_engine_per_arch(tmp_path, monkeypatch):
+    """reconstruct_scene keys its engine cache by engine_config(), which
+    holds the matcher family: the same weights object under another arch
+    builds a new engine, and the same arch reuses it."""
+    built = []
+
+    class Engine:
+        def __init__(self, cfg, params=None, device=None):
+            built.append(cfg.matcher)
+
+    class Stop(Exception):
+        pass
+
+    def stop(*a, **k):
+        raise Stop
+
+    monkeypatch.setattr(TP, "PairMatchingEngine", Engine)
+    monkeypatch.setattr(TP, "_match_stage", stop)
+    scene = tmp_path / "scene"
+    chip_smoke.write_scene(str(scene), size=64, n_views=2)
+    params = {}
+    TP._ENGINE_CACHE.clear()
+    for arch in ("loftr", "aspan", "aspan", "matchformer", "loftr"):
+        with pytest.raises(Stop):
+            TP.reconstruct_scene(str(scene / "images"), str(tmp_path / arch),
+                                 TP.PipelineConfig(matcher=arch),
+                                 matcher_params=params, device="cpu")
+    TP._ENGINE_CACHE.clear()
+    assert built == ["loftr", "aspan", "matchformer", "loftr"]
 
 
 @pytest.mark.parametrize("error,device_error,status,rc", [

@@ -9,7 +9,9 @@ matches rounded to a 4 px grid:
     JAX_PLATFORMS=cpu python tests/test_torch_engine.py [--size 832]
 
 and, with `--dtype bfloat16`, the same engine with its matcher in bf16
-(the numbers of the smoke's `bf16` phase).
+(the numbers of the smoke's `bf16` phase); with `--arch aspan`, the ASpan
+engine with weights/demo_aspan_bf16.msgpack, coarse only, in either dtype
+(JAX_MAIN_ASPAN, the smoke's `alt` phase).
 """
 
 import os
@@ -21,6 +23,8 @@ import pytest
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WEIGHTS = os.path.join(REPO, "weights", "demo_matcher_r5_bf16.msgpack")
+ALT_WEIGHTS = {"aspan": os.path.join(REPO, "weights",
+                                     "demo_aspan_bf16.msgpack")}
 
 
 def _scene(size, n_views, seed=0):
@@ -51,7 +55,8 @@ def _epipolar_summary(raw, names, K, q, t):
     return counts, float(np.median(e))
 
 
-def _jax_engine_matches(images, names, pairs, size, dtype="float32"):
+def _jax_engine_matches(images, names, pairs, size, dtype="float32",
+                        arch="loftr"):
     import jax
     import jax.numpy as jnp
     from flax import serialization
@@ -65,13 +70,17 @@ def _jax_engine_matches(images, names, pairs, size, dtype="float32"):
 
     # The checkpoint's tree cast to fp32, as load_matcher_params casts it to
     # its fp32 template, without that loader's template init.
-    with open(WEIGHTS, "rb") as f:
+    with open(ALT_WEIGHTS.get(arch, WEIGHTS), "rb") as f:
         raw = serialization.msgpack_restore(f.read())["params"]
     params = jax.tree_util.tree_map(lambda x: jnp.asarray(x, jnp.float32),
                                     raw)
-    cfg = JaxEngineConfig(img_resize=size, fine_enabled=True,
-                          round_matches_ratio=4, batch_size=1,
-                          compute_dtype=dtype)
+    if arch == "loftr":
+        cfg = JaxEngineConfig(img_resize=size, fine_enabled=True,
+                              round_matches_ratio=4, batch_size=1,
+                              compute_dtype=dtype)
+    else:
+        cfg = JaxEngineConfig(matcher=arch, img_resize=size, batch_size=1,
+                              compute_dtype=dtype)
     engine = JaxEngine(cfg, params=params,
                        mesh=make_mesh(1, devices=jax.devices()[:1]))
     imgs = {n: JaxImage(images[i], np.ones(2, np.float32), (size, size),
@@ -302,6 +311,13 @@ from detectorfreesfm_tpu_torch.sfm import model_import
 assert pointcloud.accuracy_completeness(
     np.zeros((3, 3)), np.ones((4, 3)), device="cpu")["accuracy@0.01"] == 0.0
 assert orchestrate.allgather_objects({{"a": 1}}) == [{{"a": 1}}]
+# The other matcher families and the bundled ASpan file.
+from detectorfreesfm_tpu_torch.models import build_matcher
+from detectorfreesfm_tpu_torch.utils.checkpoint import load_arch_params
+build_matcher("aspan").load_state_dict(load_arch_params(
+    os.path.join(os.path.dirname({weights!r}), "demo_aspan_bf16.msgpack"),
+    "aspan"))
+build_matcher("matchformer")
 import shutil
 shutil.rmtree(d)
 banned = ("jax", "jaxlib", "flax", "msgpack", "h5py", "PIL",
@@ -382,7 +398,8 @@ def test_epipolar_error_is_zero_on_true_correspondences():
     assert symmetric_epipolar_error(F, proj[0], proj[1] + 3.0).mean() > 0.5
 
 
-def record_jax_reference(size=832, n_views=4, seed=0, dtype="float32"):
+def record_jax_reference(size=832, n_views=4, seed=0, dtype="float32",
+                         arch="loftr"):
     """Print the dense JAX engine's numbers on the smoke's scene."""
     import json
     import time
@@ -396,10 +413,11 @@ def record_jax_reference(size=832, n_views=4, seed=0, dtype="float32"):
     names = [f"view_{i}" for i in range(n_views)]
     pairs = exhaustive_pairs(names)
     t0 = time.time()
-    raw = _jax_engine_matches(images, names, pairs, size, dtype)
+    raw = _jax_engine_matches(images, names, pairs, size, dtype, arch)
     counts, med = _epipolar_summary(raw, names, K, q, t)
     print(json.dumps({
-        "engine": f"jax dense {dtype} cpu", "size": size, "n_views": n_views,
+        "engine": f"jax dense {dtype} cpu", "arch": arch, "size": size,
+        "n_views": n_views,
         "seed": seed, "valid_per_pair": counts,
         "total_valid": sum(counts.values()), "median_epipolar_px": med,
         "seconds": time.time() - t0}), flush=True)
@@ -414,5 +432,7 @@ if __name__ == "__main__":
     ap.add_argument("--views", type=int, default=4)
     ap.add_argument("--dtype", default="float32",
                     choices=("float32", "bfloat16"))
+    ap.add_argument("--arch", default="loftr", choices=("loftr", "aspan"))
     args = ap.parse_args()
-    record_jax_reference(args.size, args.views, dtype=args.dtype)
+    record_jax_reference(args.size, args.views, dtype=args.dtype,
+                         arch=args.arch)

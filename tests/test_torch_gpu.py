@@ -846,3 +846,50 @@ def test_fused_auto_takes_the_kernels_above_12k_tokens(tmp_path,
     ecfg = seen["cfg"].engine_config()
     assert ecfg.fused_matching is fused and ecfg.batch_size == 8
     assert ecfg.img_resize == size
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["aspan", "matchformer"])
+def test_alt_matcher_forward_on_the_card_equals_the_cpu(arch):
+    """The other families' forward on the card (ASpan with the bundled
+    weights, MatchFormer from a seeded flax-style init) against the CPU's
+    on one 256 px pair in fp32: the dense confidence within 1e-4 of its
+    largest value and the mutual-NN match rows at IoU >= 0.99 (threshold
+    0 for the random MatchFormer); the model runs on CUDA tensors, and the
+    fused kernels stay off its path."""
+    _needs_cuda()
+    from detectorfreesfm_tpu_torch.data.synthetic import (SyntheticConfig,
+                                                          generate_scene)
+    from detectorfreesfm_tpu_torch.models import build_matcher
+    from detectorfreesfm_tpu_torch.utils.checkpoint import (flax_init_,
+                                                            load_arch_params)
+
+    imgs = generate_scene(0, SyntheticConfig(size=256, n_views=2))[0]
+    img0, img1 = (torch.from_numpy(imgs[i:i + 1, ..., None])
+                  for i in (0, 1))
+    kw = {} if arch == "aspan" else dict(match_threshold=0.0)
+    model = build_matcher(arch, **kw)
+    if arch == "aspan":
+        model.load_state_dict(load_arch_params(
+            os.path.join(REPO, "weights", "demo_aspan_bf16.msgpack"),
+            "aspan"))
+    else:
+        flax_init_(model, torch.Generator().manual_seed(0))
+    model.eval()
+    for k in fused_dsm.launches:
+        fused_dsm.launches[k] = 0
+    out = {}
+    for dev in ("cpu", "cuda"):
+        model.to(dev)
+        with torch.no_grad():
+            m, conf = model(img0.to(dev), img1.to(dev), return_conf=True)
+        assert conf.device.type == dev
+        v = m.valid[0].cpu().numpy()
+        rows = np.concatenate([m.coords0[0].cpu().numpy(),
+                               m.coords1[0].cpu().numpy()], 1)[v]
+        out[dev] = ({tuple(r) for r in rows.tolist()}, conf.cpu().numpy())
+    assert fused_dsm.launches == {"dsm_pass1": 0, "dsm_pass2": 0}
+    (cpu_rows, cpu_conf), (gpu_rows, gpu_conf) = out["cpu"], out["cuda"]
+    assert len(cpu_rows) > 40
+    assert len(cpu_rows & gpu_rows) / len(cpu_rows | gpu_rows) >= 0.99
+    assert np.abs(gpu_conf - cpu_conf).max() <= 1e-4 * cpu_conf.max()

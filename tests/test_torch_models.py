@@ -124,3 +124,36 @@ def test_matcher_coarse_fine_matches_jax(weights, jax_matches, fused):
     d_xy = max(np.abs(ours_rows[k][0] - ref_rows[k][0]).max() for k in common)
     d_conf = max(abs(ours_rows[k][1] - ref_rows[k][1]) for k in common)
     assert d_xy <= 0.1 and d_conf <= 1e-4, (d_xy, d_conf)
+
+
+@pytest.mark.parametrize("variant", ["8_2", "8_1", "4_1", "2_1", "16_4"])
+def test_build_resnetfpn_variants_match_jax(variant):
+    """Every ResNetFPN variant of build_resnetfpn from a JAX init with
+    seeded noise on every leaf (BatchNorm statistics included), on a
+    64 px image: coarse and fine within 1e-5 of their largest value; an
+    unknown name raises in both packages."""
+    x = np.random.default_rng(3).uniform(0, 1, (1, 64, 64, 1)).astype(
+        np.float32)
+    jnet = jax_backbone.build_resnetfpn(variant)
+    jv = jax.jit(jnet.init)(jax.random.PRNGKey(0), jnp.asarray(x))
+    rng = np.random.default_rng(4)
+    jv = jax.tree_util.tree_map_with_path(
+        lambda p, a: np.asarray(a) + (
+            rng.uniform(0.0, 0.5, a.shape) if "var" in str(p[-1]) else
+            rng.normal(0.0, 0.05, a.shape)).astype(np.float32), jv)
+    ref = jax.jit(jnet.apply)(jv, jnp.asarray(x))
+    from test_torch_train import state_of
+
+    net = backbone.build_resnetfpn(variant).eval()
+    net.load_state_dict(state_of(jv))
+    with torch.no_grad():
+        ours = net(torch.from_numpy(x).permute(0, 3, 1, 2))
+    for o, r in zip(ours, ref):
+        r = np.asarray(r)
+        o = o.permute(0, 2, 3, 1).numpy()
+        assert o.shape == r.shape
+        assert np.abs(o - r).max() <= 1e-5 * np.abs(r).max()
+    with pytest.raises(ValueError, match="unknown ResNetFPN variant"):
+        jax_backbone.build_resnetfpn(variant + "x")
+    with pytest.raises(ValueError, match="unknown ResNetFPN variant"):
+        backbone.build_resnetfpn(variant + "x")

@@ -11,7 +11,10 @@ chip_smoke.write_scene (about half an hour on a CPU):
     JAX_PLATFORMS=cpu python tests/test_torch_pipeline.py --record
 
 With `--dtype bfloat16` the JAX CLI runs with `--dtype bfloat16` on the
-same files: JAX_RECONSTRUCT_BF16, the smoke's `bf16` run A.
+same files: JAX_RECONSTRUCT_BF16, the smoke's `bf16` run A. With `--arch
+aspan` it runs `--matcher-arch aspan --matcher-ckpt
+weights/demo_aspan_bf16.msgpack`: JAX_RECONSTRUCT_ASPAN, the smoke's `alt`
+run A.
 """
 
 import json
@@ -292,13 +295,31 @@ def test_smoke_reconstruct_gates_hold_the_card_to_jax():
     launches, files and completed refinement iterations a run A must show)
     and values just inside each bound, and reject each value just
     outside."""
+    check_reconstruct_gate_bounds(chip_smoke.JAX_RECONSTRUCT,
+                                  {"dsm_pass1": 1, "dsm_pass2": 1})
+
+
+def test_smoke_alt_reconstruct_gates_hold_the_card_to_jax():
+    """The alt phase's run A (ASpan, dense): the same gates against
+    JAX_RECONSTRUCT_ASPAN, with 0 launches of either pass required."""
+    check_reconstruct_gate_bounds(chip_smoke.JAX_RECONSTRUCT_ASPAN,
+                                  chip_smoke.NO_LAUNCHES)
+
+
+def check_reconstruct_gate_bounds(ref, launches):
+    """_check_reconstruct_gates(got, ref, launches) passes `ref` itself
+    and values just inside each bound, and fails each value just outside
+    and any other launch count."""
     import copy
 
-    ref = chip_smoke.JAX_RECONSTRUCT
     base = dict(copy.deepcopy(ref), missing_files=[],
-                launches={"dsm_pass1": 1, "dsm_pass2": 1})
+                launches=dict(launches))
     base["result"]["refine_iterations_completed"] = 2  # the port's key
-    chip_smoke._check_reconstruct_gates(copy.deepcopy(base), ref)
+
+    def gates(got):
+        chip_smoke._check_reconstruct_gates(got, ref, launches)
+
+    gates(copy.deepcopy(base))
 
     def edited(edit):
         g = copy.deepcopy(base)
@@ -317,10 +338,12 @@ def test_smoke_reconstruct_gates_hold_the_card_to_jax():
             mean_reproj_px=f["mean_reproj_px"] + 0.049,
             grey_fraction=0.49),
         g["result"]["pose_auc"].update({"auc@5": auc5 - 0.0199})))
-    chip_smoke._check_reconstruct_gates(near, ref)
+    gates(near)
+    other = {k: v + 1 for k, v in launches.items()}
     bad = [
-        lambda g: g.update(launches={"dsm_pass1": 0, "dsm_pass2": 1}),
-        lambda g: g.update(launches={"dsm_pass1": 1, "dsm_pass2": 2}),
+        lambda g: g.update(launches=dict(launches, dsm_pass2=other[
+            "dsm_pass2"])),
+        lambda g: g.update(launches=other),
         lambda g: g.update(missing_files=["model_refined_1/images.bin"]),
         lambda g: g["result"].update(status="failed"),
         lambda g: g["result"].update(refine_iterations_completed=1),
@@ -340,7 +363,7 @@ def test_smoke_reconstruct_gates_hold_the_card_to_jax():
     ]
     for edit in bad:
         with pytest.raises(RuntimeError, match="chip_smoke check failed"):
-            chip_smoke._check_reconstruct_gates(edited(edit), ref)
+            gates(edited(edit))
 
 
 def test_written_files_names_what_is_missing(tmp_path):
@@ -394,10 +417,14 @@ if __name__ == "__main__":
                     help="keep the scene and the JAX output here")
     ap.add_argument("--dtype", default="float32",
                     choices=("float32", "bfloat16"))
+    ap.add_argument("--arch", default="loftr", choices=("loftr", "aspan"))
     args = ap.parse_args()
     import json
 
     extra = () if args.dtype == "float32" else ("--dtype", args.dtype)
+    if args.arch == "aspan":
+        extra += ("--matcher-arch", "aspan", "--matcher-ckpt",
+                  chip_smoke.ASPAN_WEIGHTS)
     with tempfile.TemporaryDirectory() as d:
         got, run = record_jax_reference(args.work or d, extra=extra)
     print(json.dumps(got), flush=True)

@@ -17,7 +17,9 @@ each leaf by about lr whatever the gradient's size).
 
 records JAX_TRAIN, the JAX numbers that chip_smoke.py's `train` phase
 holds the port to (see `record`); with `--dtype bfloat16` appended,
-JAX_TRAIN_BF16 for its `bf16` phase.
+JAX_TRAIN_BF16 for its `bf16` phase; with `--alt` appended, the
+`train_matcher_aspan` and `train_matcher_matchformer` entries of
+JAX_TRAIN for its `alt` phase.
 """
 
 import json
@@ -564,11 +566,12 @@ def test_new_modules_import_no_jax():
 
 # --- JAX_TRAIN record -------------------------------------------------------
 
-def _record_matcher(data, weights, steps, dtype="float32"):
+def _record_matcher(data, weights, steps, dtype="float32", arch="loftr"):
     """`train-matcher --fine [--dtype-train bfloat16]` as JAX's verb runs
     it (its dataset, sampler, MatcherTrainer, load_params), each step JAX's
     loss function and optax update, jitted once: the losses and the
-    gradient norms."""
+    gradient norms. Another `arch` trains without --fine, and from JAX's
+    fresh init where `weights` is None."""
     import glob
 
     from detectorfreesfm_tpu.data.megadepth import (
@@ -588,13 +591,16 @@ def _record_matcher(data, weights, steps, dtype="float32"):
     ids = SceneBalancedSampler([len(d) for d in ds],
                                n_per_scene=200).epoch(0).tolist()
     jt = MatcherTrainer(MatcherTrainConfig(
-        matcher=MatcherConfig(fine_enabled=True, compute_dtype=dtype),
+        arch=arch,
+        matcher=MatcherConfig(fine_enabled=arch == "loftr",
+                              compute_dtype=dtype),
         optim=OptimConfig(true_batch_size=1, backbone_path="backbone")))
     img = jnp.zeros((1, 832, 832, 1))
     params = jax.jit(jt.model.init)(jax.random.PRNGKey(jt.cfg.seed), img, img)
     jt.tx = build_optimizer(jt.cfg.optim, params)
     state = MatcherTrainState(params, jt.tx.init(params), 0)
-    state = state._replace(params=jt.load_params(weights, state.params))
+    if weights is not None:
+        state = state._replace(params=jt.load_params(weights, state.params))
 
     @jax.jit
     def vg(p, a, b, g, u):
@@ -741,7 +747,7 @@ def _record_selfsup(images, weights, steps, work):
     return out
 
 
-def record(work, dtype="float32"):
+def record(work, dtype="float32", alt=False):
     """JAX_TRAIN for chip_smoke.py's `train` phase: the same files (its
     write_train_data), weights and seeds as the phase's verbs. With
     dtype="bfloat16", JAX_TRAIN_BF16 for its `bf16` phase: the two verbs
@@ -754,6 +760,16 @@ def record(work, dtype="float32"):
     os.makedirs(work, exist_ok=True)
     data, images = cs.write_train_data(work)
     rec, secs = {}, {}
+    if alt:
+        for arch, weights in (("aspan", cs.ASPAN_WEIGHTS),
+                              ("matchformer", None)):
+            t0 = time.time()
+            rec[f"train_matcher_{arch}"] = _record_matcher(
+                data, weights, cs.TRAIN_STEPS, arch=arch)
+            secs[arch] = time.time() - t0
+        print(json.dumps(rec))
+        print(json.dumps({"cpu_seconds": secs}))
+        return
     if dtype != "float32":
         t0 = time.time()
         rec["train_matcher"] = _record_matcher(data, cs.WEIGHTS,
@@ -784,6 +800,6 @@ if __name__ == "__main__":
         record(sys.argv[sys.argv.index("--work") + 1]
                if "--work" in sys.argv else tempfile.mkdtemp(),
                sys.argv[sys.argv.index("--dtype") + 1]
-               if "--dtype" in sys.argv else "float32")
+               if "--dtype" in sys.argv else "float32", "--alt" in sys.argv)
     else:
         raise SystemExit(pytest.main([__file__, "-q"]))

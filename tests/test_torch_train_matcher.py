@@ -164,9 +164,28 @@ def test_matcher_trainer_step_equals_jax(fine):
     assert_adam_step_close(tstate2.params, state_of(jparams), 5e-4 * 2 / 4)
 
 
-def test_unported_arch_raises():
+def test_unported_arch_raises(tmp_path):
+    """Every family trains; what JAX cannot run, an alt family with the
+    fine stage (its model takes no `fine_at`), raises when the trainer is
+    built, and the verb exits with its message."""
+    from detectorfreesfm_tpu_torch import cli
+    from detectorfreesfm_tpu_torch.models.loftr import MatcherConfig
     from detectorfreesfm_tpu_torch.train.matcher_trainer import (
         MatcherTrainConfig, MatcherTrainer)
 
-    with pytest.raises(NotImplementedError, match="item 15"):
-        MatcherTrainer(MatcherTrainConfig(arch="aspan"), device=CPU)
+    for arch in ("aspan", "matchformer"):
+        with torch.device("meta"):
+            assert MatcherTrainer(MatcherTrainConfig(arch=arch),
+                                  device=CPU).cfg.arch == arch
+    with pytest.raises(ValueError, match="no fine stage"):
+        MatcherTrainer(MatcherTrainConfig(
+            arch="aspan", matcher=MatcherConfig(fine_enabled=True)),
+            device=CPU)
+    from test_torch_train import write_planar_scenes
+
+    write_planar_scenes(str(tmp_path), size=64, views=2)
+    with pytest.raises(SystemExit, match="no fine stage"):
+        cli.main(["train-matcher", "--arch", "aspan", "--fine", "--data",
+                  str(tmp_path), "--output", str(tmp_path / "out"),
+                  "--img-resize", "64", "--device", "cpu"])
+    assert not (tmp_path / "out").exists()
