@@ -17,6 +17,12 @@ standard library, numpy, torch and the port. Phases, one JSON line each:
   main     6 exhaustive pairs of a 832 px synthetic scene, coarse_fine,
            through PairMatchingEngine with the fused kernels, held to the
            dense path and to the JAX engine's recorded numbers
+  profile  main's 6 pairs through an engine with utils.profiler's
+           SimpleProfiler (its summary; engine/match_forward counted once
+           per match_pairs call), and a trace_to trace of one fused batch,
+           which must hold the engine/match_forward range with the kernels
+           of dsm_pass1 and dsm_pass2 inside it; trace in
+           build/smoke_profile/
   geometry the slice beneath the mapper on the card, from main's fused
            matches and on the 28 cached pairs of tests/data/torch/
            demo_cached_832: match store (h5io), essential/homography
@@ -42,8 +48,14 @@ standard library, numpy, torch and the port. Phases, one JSON line each:
            to the JAX package's own CLI on the same files (recorded with
            `python tests/test_torch_pipeline.py --record`); run B, the
            same command in a subprocess, resumes without matching; run C,
-           6 views (15 pairs), must complete; fused against dense
-           matching at 832 px; full report in
+           6 views (15 pairs), must complete; run J, run A's command on
+           the same scene as committed JPEG files (tests/data/torch/jpeg/
+           scene: three baseline 4:2:0 views and one progressive, decoded
+           by csrc/jpeg.cpp), held by run A's gates to the JAX CLI on the
+           same files (`python tests/test_torch_pipeline.py --record
+           --jpeg`); fused against dense matching at 832 px; decode
+           seconds of the PNG and JPEG views, serial and with 8 threads,
+           and of a 2080 px colour progressive JPEG; full report in
            build/smoke_reconstruct/reconstruct.json
   train    the four training verbs through the port's cli.main on two
            rendered 832 px scenes written to disk (6 views, tuples of 4):
@@ -108,8 +120,9 @@ standard library, numpy, torch and the port. Phases, one JSON line each:
            a batch, step seconds and peak memory; full report in
            build/smoke_alt/alt.json
 
-The build phase also builds the native image loader (g++, -ljpeg -lpng)
-and says whether it linked. Any failed check raises (non-zero exit). The
+The build_image_loader phase builds the JPEG decoder (csrc/jpeg.cpp, g++
+and the standard library alone; it must build), the PNG unfilter, and the
+native image loader (g++, -ljpeg -lpng), saying whether that one linked. Any failed check raises (non-zero exit). The
 last two lines are the kernels summary and {"ok": true, "device": {...}}.
 """
 
@@ -445,6 +458,85 @@ def main_path(params, dtype="float32"):
         n_keypoints={n: len(k) for n, k in keypoints.items()},
         n_index_matches=sum(len(v) for v in match_indices.values()),
         launches=launches, profile_one_batch=profile)
+
+
+def trace_kernels_in_range(logdir, range_name, kernels=None):
+    """Read the Chrome trace that utils.profiler.trace_to wrote into
+    `logdir`: how many `range_name` ranges it holds, how many kernel
+    events it holds in all, and, by kernel, how many of its events start
+    inside the first such range. `kernels` maps a name to the device
+    function it launches (default: the two passes)."""
+    import glob
+
+    kernels = kernels or {"dsm_pass1": "pass1_kernel",
+                          "dsm_pass2": "pass2_kernel"}
+    files = glob.glob(os.path.join(logdir, "*.pt.trace.json"))
+    check(len(files) == 1, "one trace file", files)
+    with open(files[0]) as f:
+        events = json.load(f)["traceEvents"]
+    ranges = [e for e in events if e.get("cat") == "user_annotation"
+              and e.get("name") == range_name]
+    device = [e for e in events if e.get("cat") == "kernel"]
+    inside = dict.fromkeys(kernels, 0)
+    if ranges:
+        lo = ranges[0]["ts"]
+        hi = lo + ranges[0]["dur"]
+        for e in device:
+            for k, fn in kernels.items():
+                if fn in e["name"] and lo <= e["ts"] <= hi:
+                    inside[k] += 1
+    return dict(file=os.path.basename(files[0]), ranges=len(ranges),
+                kernel_events=len(device), kernels_in_range=inside)
+
+
+def profile_phase(params):
+    """Main's 6 pairs through an engine with a SimpleProfiler (batches of
+    2, fused; warm from the main phase, which ran in this process): its
+    summary, and engine/match_forward counted once for the match_pairs
+    call. Then one fused batch under trace_to: the trace must hold the
+    engine/match_forward range, kernel events, and both passes' kernels
+    inside that range."""
+    import shutil
+
+    from detectorfreesfm_tpu_torch.match.engine import (
+        EngineConfig,
+        PairMatchingEngine,
+    )
+    from detectorfreesfm_tpu_torch.utils.profiler import (
+        SimpleProfiler,
+        trace_to,
+    )
+
+    _names, images, pairs, _true = main_scene()
+    engine = PairMatchingEngine(EngineConfig(
+        img_resize=832, fine_enabled=True, round_matches_ratio=4,
+        fused_matching=True, batch_size=2), params)
+    prof = engine.profiler = SimpleProfiler()
+    reset_launches()
+    engine.match_pairs(pairs, images)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    counts, totals, summary = dict(prof.counts), dict(prof.totals), \
+        prof.summary()
+    check(counts == {"engine/match_forward": 1},
+          "profile: engine/match_forward per match_pairs call", counts)
+    check(launches == {"dsm_pass1": 3, "dsm_pass2": 3},
+          "profile: launches", launches)
+    logdir = os.path.join(REPO, "build", "smoke_profile")
+    shutil.rmtree(logdir, ignore_errors=True)
+    t0 = time.time()
+    with trace_to(logdir):
+        engine.match_pairs(pairs[:2], images)
+        torch.cuda.synchronize()
+    trace_s = time.time() - t0
+    found = trace_kernels_in_range(logdir, "engine/match_forward")
+    check(found["ranges"] == 1, "profile: engine/match_forward range", found)
+    check(found["kernel_events"] > 0, "profile: kernel events in the trace",
+          found)
+    check(all(n >= 1 for n in found["kernels_in_range"].values()),
+          "profile: both passes inside engine/match_forward", found)
+    return dict(counts=counts, totals_s=totals, summary=summary,
+                launches=launches, trace_s=trace_s, trace=found)
 
 
 # ---------------------------------------------------------------------------
@@ -1958,6 +2050,38 @@ JAX_RECONSTRUCT = {'coarse': {'grey_fraction': 0.008070510778379527,
                               'status': 'ok'}}
 
 
+# Run J: the JAX package's `cli reconstruct` on the CPU from run A's scene
+# as the committed JPEG files (`python tests/test_torch_pipeline.py
+# --record --jpeg`, 1042 s there; its stage times: match 36.75 s,
+# coarse_sfm 31.15 s, io 1.32 s, refine 934.99 s).
+JAX_RECONSTRUCT_JPEG = {'coarse': {'grey_fraction': 0.007655502392344498,
+                                   'mean_reproj_px': 0.8732000414063218,
+                                   'n_observations': 20509,
+                                   'n_points': 9405,
+                                   'registered': ['view_000.jpg',
+                                                  'view_001.jpg',
+                                                  'view_002.jpg',
+                                                  'view_003.jpg']},
+                        'refined': {'grey_fraction': 0.009074013337706351,
+                                    'mean_reproj_px': 1.1774773999977242,
+                                    'n_observations': 19650,
+                                    'n_points': 9147,
+                                    'registered': ['view_000.jpg',
+                                                   'view_001.jpg',
+                                                   'view_002.jpg',
+                                                   'view_003.jpg']},
+                        'result': {'n_images': 4,
+                                   'n_observations': 19650,
+                                   'n_points': 9147,
+                                   'n_registered': 4,
+                                   'pose_auc': {'auc@1': 0.8963514509820172,
+                                                'auc@10': 0.9896351450982017,
+                                                'auc@20': 0.9948175725491009,
+                                                'auc@3': 0.9654504836606724,
+                                                'auc@5': 0.9792702901964034},
+                                   'status': 'ok'}}
+
+
 def write_scene(root, seed=0, size=RECON_SIZE, n_views=RECON_VIEWS):
     """generate_scene as a scene directory of the CLI's layout:
     images/view_00k.png (8-bit gray, written by data/png.py with
@@ -1968,24 +2092,67 @@ def write_scene(root, seed=0, size=RECON_SIZE, n_views=RECON_VIEWS):
     from detectorfreesfm_tpu_torch.data.synthetic import (
         SyntheticConfig,
         generate_scene,
-        quat_to_rotmat,
     )
 
     imgs, _d, K, q, t = generate_scene(
         seed, SyntheticConfig(size=size, n_views=n_views))
-    for sub in ("images", "poses", "intrins"):
-        os.makedirs(os.path.join(root, sub), exist_ok=True)
+    os.makedirs(os.path.join(root, "images"), exist_ok=True)
     names = []
     for i in range(n_views):
-        stem = f"view_{i:03d}"
-        names.append(stem + ".png")
-        write_png(os.path.join(root, "images", stem + ".png"),
+        names.append(f"view_{i:03d}.png")
+        write_png(os.path.join(root, "images", names[-1]),
                   np.clip(np.round(imgs[i] * 255.0), 0, 255).astype(np.uint8))
+    _write_poses(root, names, K, q, t)
+    return names, K, q, t
+
+
+def _write_poses(root, names, K, q, t):
+    """poses/<stem>.txt (4x4 world-to-camera) and intrins/<stem>.txt (3x3
+    K) of each image."""
+    from detectorfreesfm_tpu_torch.data.synthetic import quat_to_rotmat
+
+    for sub in ("poses", "intrins"):
+        os.makedirs(os.path.join(root, sub), exist_ok=True)
+    for i, name in enumerate(names):
+        stem = os.path.splitext(name)[0]
         pose = np.eye(4)
         pose[:3, :3] = quat_to_rotmat(q[i])
         pose[:3, 3] = t[i]
         np.savetxt(os.path.join(root, "poses", stem + ".txt"), pose)
         np.savetxt(os.path.join(root, "intrins", stem + ".txt"), K[i])
+
+
+# Run J's images: run A's four 1040 px renders as committed JPEG files
+# (tools/make_jpeg_fixtures.py: YCbCr at quality 90, views 0-2 baseline
+# 4:2:0, view 3 progressive), and a 2080 px colour progressive JPEG for
+# the decode time of a photograph-sized file.
+JPEG_DIR = os.path.join(REPO, "tests", "data", "torch", "jpeg")
+JPEG_SCENE = os.path.join(JPEG_DIR, "scene")
+JPEG_PHOTO = os.path.join(JPEG_DIR, "photo_2080px_prog.jpg")
+
+
+def write_jpeg_scene(root):
+    """Run A's scene with its images as the committed JPEG files: images/
+    view_00k.jpg, and the poses and intrinsics of generate_scene(seed=0,
+    size=RECON_SIZE, n_views=RECON_VIEWS), as write_scene writes them.
+    Returns the image names and the true (K, q, t)."""
+    import shutil
+
+    from detectorfreesfm_tpu_torch.data.synthetic import (
+        SyntheticConfig,
+        generate_scene,
+    )
+
+    _imgs, _d, K, q, t = generate_scene(
+        0, SyntheticConfig(size=RECON_SIZE, n_views=RECON_VIEWS))
+    names = sorted(os.listdir(JPEG_SCENE))
+    check(names == [f"view_{i:03d}.jpg" for i in range(RECON_VIEWS)],
+          "committed JPEG scene", names)
+    os.makedirs(os.path.join(root, "images"), exist_ok=True)
+    for n in names:
+        shutil.copy(os.path.join(JPEG_SCENE, n),
+                    os.path.join(root, "images", n))
+    _write_poses(root, names, K, q, t)
     return names, K, q, t
 
 
@@ -2140,14 +2307,17 @@ def _filter_counts(path):
     return np.bincount(rows[:, 0], minlength=5).tolist()
 
 
-def _decode_timing(paths, work):
+def _decode_timing(paths, work, jpeg_paths):
     """Seconds to decode and resize the images to the 832 px frame (the
     backend images.load_gray picks), one after another and through the
-    8-thread pool the engine and the pipeline use, with the row filters
-    the files hold. Then, on the first file, data/png.py's C++ unfilter
-    against its Python fallback; and a 2080 px RGB file with adaptive
-    filters (2x2 tiles of three views as its colour channels), decoded
-    and resized as a user's photograph would be."""
+    8-thread pool the engine and the pipeline use: the PNG `paths`, with
+    the row filters they hold, and run J's JPEG views. Then, on the first
+    PNG file, data/png.py's C++ unfilter against its Python fallback; a
+    2080 px RGB PNG with adaptive filters (2x2 tiles of three views as its
+    colour channels), and the 2080 px colour progressive JPEG
+    (JPEG_PHOTO), decoded and resized as a user's photograph would be:
+    for the JPEG also its decode alone, the numpy resize of the decoded
+    luma (which must give the C++ resize's floats) and decode_rgb."""
     from concurrent.futures import ThreadPoolExecutor
 
     from detectorfreesfm_tpu_torch.data import images, png
@@ -2155,16 +2325,25 @@ def _decode_timing(paths, work):
     def load(p):
         return images.load_gray(p, 832, 8, 832)
 
-    t0 = time.time()
-    serial = [load(p) for p in paths]
-    serial_s = time.time() - t0
-    backend, unfilter = images.last_backend, png.last_unfilter
-    t0 = time.time()
-    with ThreadPoolExecutor(max_workers=8) as pool:
-        pooled = list(pool.map(load, paths))
-    pooled_s = time.time() - t0
-    check(all(np.array_equal(a.data, b.data) for a, b in zip(serial, pooled)),
-          "threaded decode differs")
+    def timed(files):
+        t0 = time.time()
+        serial = [load(p) for p in files]
+        serial_s = time.time() - t0
+        backend = images.last_backend
+        t0 = time.time()
+        with ThreadPoolExecutor(max_workers=8) as pool:
+            pooled = list(pool.map(load, files))
+        pooled_s = time.time() - t0
+        check(all(np.array_equal(a.data, b.data)
+                  for a, b in zip(serial, pooled)),
+              "threaded decode differs", files)
+        return dict(images=len(files), backend=backend, serial_s=serial_s,
+                    threads_8_s=pooled_s)
+
+    png_views = timed(paths)
+    unfilter = png.last_unfilter
+    jpeg_views = timed(jpeg_paths)
+    check(jpeg_views["backend"] == "jpeg", "JPEG backend", jpeg_views)
     with open(paths[0], "rb") as f:
         data = f.read()
     unfilter_s = {}
@@ -2183,20 +2362,44 @@ def _decode_timing(paths, work):
     big_s = time.time() - t0
     check(big_img.valid_size == (832, 832), "2080 px resize",
           big_img.valid_size)
-    return dict(images=len(paths), backend=backend, unfilter=unfilter,
+
+    t0 = time.time()
+    photo = load(JPEG_PHOTO)
+    photo_s = time.time() - t0
+    check(images.last_backend == "jpeg" and photo.valid_size == (832, 832),
+          "2080 px JPEG", images.last_backend, photo.valid_size)
+    t0 = time.time()
+    luma = images._jpeg_plane(JPEG_PHOTO, rgb=False)
+    decode_s = time.time() - t0
+    t0 = time.time()
+    f = luma.astype(np.float32) / np.float32(255.0)
+    resized = images.resample_axis(images.resample_axis(f, 832, axis=1), 832,
+                                   axis=0)
+    numpy_resize_s = time.time() - t0
+    check(np.array_equal(resized, photo.data), "numpy resize of the JPEG "
+          "luma differs from the C++ resize")
+    t0 = time.time()
+    colour = images.decode_rgb(JPEG_PHOTO)
+    rgb_s = time.time() - t0
+    check(colour.shape == (2080, 2080, 3), "2080 px JPEG RGB", colour.shape)
+    return dict(png_views=png_views, jpeg_views=jpeg_views, unfilter=unfilter,
                 unfilter_error=png.native_error(),
                 row_filters=_filter_counts(paths[0]),
-                serial_s=serial_s, threads_8_s=pooled_s,
                 first_image_decode_s=unfilter_s,
                 rgb_2080px=dict(bytes=os.path.getsize(big),
                                 row_filters=_filter_counts(big),
-                                load_gray_s=big_s))
+                                load_gray_s=big_s),
+                jpeg_2080px_progressive=dict(
+                    bytes=os.path.getsize(JPEG_PHOTO), load_gray_s=photo_s,
+                    decode_luma_s=decode_s, numpy_resize_s=numpy_resize_s,
+                    cpp_resize_s=photo_s - decode_s, decode_rgb_s=rgb_s))
 
 
 def reconstruct_phase():
     """The `reconstruct` verb on the card, as a user calls it, on a scene
     written to disk: run A (gated against JAX_RECONSTRUCT), run B (a
-    resuming rerun in a subprocess) and run C (6 views, report-only
+    resuming rerun in a subprocess), run J (run A's scene as JPEG files,
+    gated against JAX_RECONSTRUCT_JPEG) and run C (6 views, report-only
     apart from completion); fused against dense matching at 832 px, and
     image decoding serial against the verb's 8 threads."""
     import dataclasses
@@ -2256,6 +2459,17 @@ def reconstruct_phase():
                  stores_rewritten=[os.path.getmtime(p) for p in stores]
                  != mtimes)
 
+    # Run J: run A's command on run A's scene as JPEG files.
+    scene_j = os.path.join(work, "scene_j")
+    out_j = os.path.join(work, "out_j")
+    names_j, _K, _q, _t = write_jpeg_scene(scene_j)
+    reset_launches()
+    images.last_backend = None
+    got_j, run_j = run_reconstruct(cli.main, scene_j, out_j, "--fused", "on")
+    got_j["launches"] = read_launches()
+    got_j["missing_files"] = written_files(out_j)
+    backend_j = images.last_backend
+
     # Run C: RECON_SCALE_VIEWS views through the same verb.
     scene_c = os.path.join(work, "scene_c")
     out_c = os.path.join(work, "out_c")
@@ -2268,7 +2482,9 @@ def reconstruct_phase():
                  coarse=got_c["coarse"], refined=got_c["refined"])
     pipeline._ENGINE_CACHE.clear()
     decode = _decode_timing([os.path.join(scene_c, "images", n)
-                             for n in names_c], work)
+                             for n in names_c], work,
+                            [os.path.join(scene_j, "images", n)
+                             for n in names_j])
 
     n_pairs_c = RECON_SCALE_VIEWS * (RECON_SCALE_VIEWS - 1) // 2
     n_batches_c = -(-n_pairs_c // RECON_BATCH)
@@ -2286,17 +2502,25 @@ def reconstruct_phase():
                          dense_runs=dense_runs),
         decode_1040px=decode,
         run_b=run_b,
+        run_j=dict(run_j, launches=got_j["launches"], image_backend=backend_j,
+                   n_registered=got_j["result"]["n_registered"],
+                   n_points=got_j["result"]["n_points"],
+                   pose_auc=got_j["result"].get("pose_auc"),
+                   coarse=got_j["coarse"], refined=got_j["refined"]),
         run_c=dict(views=RECON_SCALE_VIEWS, pairs=n_pairs_c,
                    stage_times=run_c["stage_times"], wall_s=run_c["wall_s"],
                    launches=run_c["launches"],
                    n_registered=got_c["result"].get("n_registered"),
                    n_points=got_c["result"].get("n_points"),
                    pose_auc=got_c["result"].get("pose_auc")),
-        got=got, got_c=got_c, jax=JAX_RECONSTRUCT)
+        got=got, got_c=got_c, got_j=got_j, jax=JAX_RECONSTRUCT,
+        jax_jpeg=JAX_RECONSTRUCT_JPEG)
     # The full report, kept also when a gate below fails.
     with open(os.path.join(work, "reconstruct.json"), "w") as f:
         json.dump(report, f, indent=1, default=float)
     _check_reconstruct_gates(got, JAX_RECONSTRUCT)
+    _check_reconstruct_gates(got_j, JAX_RECONSTRUCT_JPEG)
+    check(backend_j == "jpeg", "run J: image backend", backend_j)
     check(not run_b["loaded_matcher"] and not run_b["stores_rewritten"],
           "run B matched again", run_b)
     check(result_b["n_registered"] == got["result"]["n_registered"]
@@ -2311,7 +2535,7 @@ def reconstruct_phase():
                                 "dsm_pass2": n_batches_c},
           "run C launches", run_c["launches"])
     return {k: v for k, v in report.items()
-            if k not in ("got", "got_c", "jax")}
+            if k not in ("got", "got_c", "got_j", "jax", "jax_jpeg")}
 
 
 # ---------------------------------------------------------------------------
@@ -3637,17 +3861,23 @@ def main():
           "tensor cores")
     # The native image loader (g++ with -ljpeg -lpng): whether this machine
     # has the headers and libraries. The verb reads PNG with data/png.py
-    # either way; without the library a JPEG raises (ROADMAP item 18).
-    # data/png.py's C++ unfilter needs g++ only, and must build.
+    # and JPEG with csrc/jpeg.cpp either way; both need g++ only, and must
+    # build.
     from detectorfreesfm_tpu_torch.data import images, png
 
     t0 = time.time()
+    jpeg = images._load_jpeg() is not None
+    jpeg_s = time.time() - t0
     native = images._load_native() is not None
     unfilter = png._load_native() is not None
     emit({"phase": "build_image_loader", "seconds": time.time() - t0,
+          "jpeg_decoder": jpeg, "jpeg_decoder_build_s": jpeg_s,
+          "jpeg_error": images.jpeg_error(),
+          "jpeg_library": images.jpeg_library_path().name,
           "native_image_loader": native, "error": images.native_error(),
           "library": images.library_path().name,
           "png_unfilter": unfilter, "png_unfilter_error": png.native_error()})
+    check(jpeg, "the JPEG decoder did not build", images.jpeg_error())
     check(unfilter, "C++ PNG unfilter did not build", png.native_error())
 
     t0 = time.time()
@@ -3671,6 +3901,10 @@ def main():
     t0 = time.time()
     keypoints, match_indices, main_res = main_path(params)
     emit({"phase": "main", "seconds": time.time() - t0, **main_res})
+
+    t0 = time.time()
+    prof = profile_phase(params)
+    emit({"phase": "profile", "seconds": time.time() - t0, **prof})
 
     geo = geometry_phase(keypoints, match_indices)
     emit({"phase": "geometry", **geo})
@@ -3710,7 +3944,9 @@ def main():
             "launches": recon["run_a"]["launches"][kname],
             "launches_by_path": {
                 "main": main_res["launches"][kname],
+                "profile": prof["launches"][kname],
                 "reconstruct_a": recon["run_a"]["launches"][kname],
+                "reconstruct_j_jpeg": recon["run_j"]["launches"][kname],
                 "reconstruct_c": recon["run_c"]["launches"][kname],
                 **{f"train_{n}": g["launches"][kname]
                    for n, g in train["verbs"].items()},

@@ -1,25 +1,31 @@
 """Image loading, resizing and padding to a fixed square frame, without PIL.
 
 Port of the JAX package's data/images.py. `load_gray` decodes through one
-of two backends:
+of three backends:
 
   * "png": data/png.py (zlib, with the row filters undone in C++) and a
     numpy copy of the native resize, which adds in the same order and
-    gives the same floats. It needs no system library, so it is the one
-    that runs wherever the port does.
+    gives the same floats. It needs no system library.
+  * "jpeg": csrc/jpeg.cpp, a self-contained baseline and progressive JPEG
+    decoder (standard C++ only, built with g++ at first use into the
+    gitignored build/native/ at the repo root), whose luma and RGB equal
+    libjpeg's bit for bit, and which resizes with the native loader's
+    arithmetic in C++. It needs no system library either.
   * "native": csrc/imageloader.cpp (the port's copy of the JAX package's
     native/imageloader.cpp, which links libjpeg and libpng), built with g++
-    at first use into the gitignored build/native/ at the repo root (never
-    into native/). JPEG luma comes straight from the Y channel; the resize
-    is Pillow's triangle filter in double precision.
+    at first use into build/native/ (never into native/). JPEG luma comes
+    straight from the Y channel; the resize is Pillow's triangle filter in
+    double precision. It raises, naming libjpeg/libpng, where the library
+    does not build (the card has no jpeglib.h).
 
-"auto" reads PNG files with the png path and everything else with the
-native one, which raises, naming the missing libjpeg/libpng, where the
-library does not build. ctypes and zlib release the GIL, so a thread pool
-decodes in parallel on either path. `last_backend` names the backend that
-decoded the last image (threads share it, so read it after a run).
-`image_size` reads (W, H) from a PNG or JPEG header in Python, and
-`sample_colors` gives point colours as the JAX package's PIL path does.
+"auto" reads PNG files with the png path, JPEG files with the jpeg path
+(so a result does not depend on whether the machine has libjpeg) and
+anything else with the native one. ctypes and zlib release the GIL, so a
+thread pool decodes in parallel on every path. `last_backend` names the
+backend that decoded the last image (threads share it, so read it after a
+run). `image_size` reads (W, H) from a PNG or JPEG header in Python;
+`decode_rgb`, `sample_colors` and `load_rgb_mean_color` give colours as
+the JAX package's PIL path does (PIL's convert("RGB")).
 """
 
 from __future__ import annotations
@@ -40,11 +46,15 @@ from . import png
 
 SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "imageloader.cpp"
 LIBS = ("-ljpeg", "-lpng")
-BACKENDS = ("auto", "native", "png")
+JPEG_SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "jpeg.cpp"
+BACKENDS = ("auto", "native", "png", "jpeg")
+JPEG_SIGNATURE = b"\xff\xd8"
 
 _lock = threading.Lock()
 _native_lib: Optional[ctypes.CDLL] = None
 _native_error: Optional[str] = None
+_jpeg_lib: Optional[ctypes.CDLL] = None
+_jpeg_error: Optional[str] = None
 last_backend: Optional[str] = None
 
 
@@ -111,25 +121,95 @@ def native_error() -> Optional[str]:
     return _native_error
 
 
-def _native_for(path: str, backend: str) -> Optional[ctypes.CDLL]:
-    """The native library if `backend` takes it for this file, else None
-    (the png path). Raises where the chosen path cannot decode the file."""
+def _backend_for(path: str, backend: str) -> str:
+    """The backend that decodes `path`: "png", "jpeg" or "native" (see
+    the module docstring)."""
     if backend not in BACKENDS:
         raise ValueError(f"unknown image backend {backend!r}: {BACKENDS}")
-    if backend == "png" or (backend == "auto" and _is_png(path)):
-        return None
+    if backend != "auto":
+        return backend
+    with open(path, "rb") as f:
+        head = f.read(8)
+    if head == png.SIGNATURE:
+        return "png"
+    return "jpeg" if head[:2] == JPEG_SIGNATURE else "native"
+
+
+def _native_or_raise(path: str) -> ctypes.CDLL:
     lib = _load_native()
     if lib is None:
         raise RuntimeError(
             f"cannot decode {path}: the native image loader (libjpeg and "
-            f"libpng through g++) is unavailable ({_native_error}); only "
-            "PNG files decode without it")
+            f"libpng through g++) is unavailable ({_native_error}); PNG and "
+            "JPEG files decode without it")
     return lib
 
 
-def _is_png(path: str) -> bool:
-    with open(path, "rb") as f:
-        return f.read(8) == png.SIGNATURE
+# -- the JPEG decoder ---------------------------------------------------------
+
+
+def jpeg_library_path() -> Path:
+    """build/native/libjpeg_<hash of source and flags>.so"""
+    return native.library_path(JPEG_SOURCE)
+
+
+def _load_jpeg() -> Optional[ctypes.CDLL]:
+    """Build (once) and load csrc/jpeg.cpp; None if g++ or the load fails
+    (the reason stays in jpeg_error())."""
+    global _jpeg_lib, _jpeg_error
+    with _lock:
+        if _jpeg_lib is not None or _jpeg_error is not None:
+            return _jpeg_lib
+        try:
+            lib = native.build(JPEG_SOURCE)
+            u8, ip = ctypes.POINTER(ctypes.c_uint8), ctypes.POINTER(
+                ctypes.c_int)
+            for fn in (lib.jpeg_gray, lib.jpeg_rgb):
+                fn.argtypes = [ctypes.c_char_p, u8, ctypes.c_long, ip,
+                               ctypes.c_char_p, ctypes.c_int]
+                fn.restype = ctypes.c_int
+            lib.jpeg_gray_resize.argtypes = [
+                ctypes.c_char_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                ctypes.POINTER(ctypes.c_float), ip, ctypes.c_char_p,
+                ctypes.c_int]
+            lib.jpeg_gray_resize.restype = ctypes.c_int
+            _jpeg_lib = lib
+        except native.BUILD_ERRORS as e:
+            _jpeg_error = f"{type(e).__name__}: {e}"
+        return _jpeg_lib
+
+
+def jpeg_error() -> Optional[str]:
+    """Why the JPEG decoder is unavailable (None if it loaded or was not
+    tried yet)."""
+    return _jpeg_error
+
+
+def _jpeg_call(fn_name: str, path: str, *args) -> None:
+    """Call one of csrc/jpeg.cpp's entry points; a refused or unreadable
+    file raises ValueError naming the file and the reason."""
+    lib = _load_jpeg()
+    if lib is None:
+        raise RuntimeError(
+            f"cannot decode {path}: the JPEG decoder (csrc/jpeg.cpp through "
+            f"g++) is unavailable ({_jpeg_error})")
+    err = ctypes.create_string_buffer(256)
+    if getattr(lib, fn_name)(path.encode(), *args, err, len(err)) != 0:
+        raise ValueError(f"{path}: {err.value.decode()}")
+
+
+def _jpeg_plane(path: str, rgb: bool) -> np.ndarray:
+    """(H, W) uint8 luma, or (H, W, 3) uint8 RGB, at full resolution."""
+    w, h = image_size(path)
+    out = np.zeros((h, w, 3) if rgb else (h, w), np.uint8)
+    wh = np.zeros(2, np.int32)
+    _jpeg_call("jpeg_rgb" if rgb else "jpeg_gray", path,
+               out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)), out.size,
+               wh.ctypes.data_as(ctypes.POINTER(ctypes.c_int)))
+    if tuple(wh) != (w, h):
+        raise ValueError(f"{path}: frame size {tuple(wh)} differs from the "
+                         f"header's {(w, h)}")
+    return out
 
 
 # -- the numpy path -----------------------------------------------------------
@@ -205,28 +285,31 @@ def load_gray(
 ) -> LoadedImage:
     """Grayscale + Pillow-style triangle resize + zero-pad to a square.
 
-    backend: "auto" (png for PNG files, native for the rest), "native"
-    or "png" (see the module docstring)."""
+    backend: "auto" (png for PNG files, jpeg for JPEG files, native for the
+    rest), "native", "png" or "jpeg" (see the module docstring)."""
     global last_backend
     tgt = pad_to if pad_to is not None else long_side
-    lib = _native_for(path, backend)
-    if lib is not None:
-        out = np.zeros((tgt, tgt), dtype=np.float32)
-        meta = np.zeros(4, dtype=np.int32)
-        rc = lib.decode_gray_resize(
-            path.encode(), long_side, df, tgt,
-            out.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
-            meta.ctypes.data_as(ctypes.POINTER(ctypes.c_int)))
+    kind = _backend_for(path, backend)
+    if kind == "png":
+        img = _png_gray_resize(path, long_side, df, tgt)
+        last_backend = "png"
+        return img
+    out = np.zeros((tgt, tgt), dtype=np.float32)
+    meta = np.zeros(4, dtype=np.int32)
+    fp = out.ctypes.data_as(ctypes.POINTER(ctypes.c_float))
+    mp = meta.ctypes.data_as(ctypes.POINTER(ctypes.c_int))
+    if kind == "jpeg":
+        _jpeg_call("jpeg_gray_resize", path, long_side, df, tgt, fp, mp)
+    else:
+        rc = _native_or_raise(path).decode_gray_resize(
+            path.encode(), long_side, df, tgt, fp, mp)
         if rc != 0:
             raise RuntimeError(
                 f"native image loader failed on {path} (rc={rc})")
-        w0, h0, nw, nh = (int(v) for v in meta)
-        last_backend = "native"
-        scale = np.array([w0 / nw, h0 / nh], dtype=np.float32)
-        return LoadedImage(out, scale, (w0, h0), (nw, nh))
-    img = _png_gray_resize(path, long_side, df, tgt)
-    last_backend = "png"
-    return img
+    w0, h0, nw, nh = (int(v) for v in meta)
+    last_backend = kind
+    scale = np.array([w0 / nw, h0 / nh], dtype=np.float32)
+    return LoadedImage(out, scale, (w0, h0), (nw, nh))
 
 
 def _jpeg_size(f, path: str) -> Tuple[int, int]:
@@ -271,22 +354,30 @@ def image_size(path: str) -> Tuple[int, int]:
 def decode_rgb(path: str, backend: str = "auto") -> np.ndarray:
     """(H, W, 3) uint8 RGB at full resolution, as PIL's convert("RGB")."""
     global last_backend
-    lib = _native_for(path, backend)
-    if lib is not None:
+    kind = _backend_for(path, backend)
+    if kind == "png":
+        rgb = png.to_rgb(png.read_png(path))
+    elif kind == "jpeg":
+        rgb = _jpeg_plane(path, rgb=True)
+    else:
+        lib = _native_or_raise(path)
         w, h = image_size(path)
-        out = np.zeros((h, w, 3), np.uint8)
+        rgb = np.zeros((h, w, 3), np.uint8)
         wh = np.zeros(2, np.int32)
         rc = lib.decode_rgb(
-            path.encode(), out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
-            out.size, wh.ctypes.data_as(ctypes.POINTER(ctypes.c_int)))
+            path.encode(), rgb.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+            rgb.size, wh.ctypes.data_as(ctypes.POINTER(ctypes.c_int)))
         if rc != 0 or tuple(wh) != (w, h):
             raise RuntimeError(
                 f"native image loader failed on {path} (rc={rc})")
-        last_backend = "native"
-        return out
-    rgb = png.to_rgb(png.read_png(path))
-    last_backend = "png"
+    last_backend = kind
     return rgb
+
+
+def load_rgb_mean_color(path: str, backend: str = "auto") -> np.ndarray:
+    """Mean RGB of the image (used for cheap 3D-point color extraction)."""
+    return np.asarray(decode_rgb(path, backend), dtype=np.float32
+                      ).reshape(-1, 3).mean(0)
 
 
 def sample_colors(path: str, xys: np.ndarray,

@@ -27,6 +27,7 @@ from ..device import compute_dtype, resolve_device
 from ..models import LOFTR_FAMILY, MATCHER_NAMES, build_matcher
 from ..models.loftr import DetectorFreeMatcher, MatcherConfig
 from ..ops.grid_merge import merge_matches_to_keypoints
+from ..utils.profiler import PassThroughProfiler
 
 
 @dataclasses.dataclass(frozen=True)
@@ -65,7 +66,9 @@ class PairMatchingEngine:
     original-pixel match arrays."""
 
     def __init__(self, cfg: EngineConfig = EngineConfig(), params=None,
-                 device=None):
+                 device=None, profiler=None):
+        self.profiler = (profiler if profiler is not None
+                         else PassThroughProfiler())
         self.cfg = cfg
         self.device = resolve_device(device)
         with torch.random.fork_rng(devices=[]):
@@ -98,7 +101,8 @@ class PairMatchingEngine:
 
         cfg = self.cfg
         names = list(paths)
-        with ThreadPoolExecutor(max_workers=8) as pool:
+        with self.profiler.record_function("engine/load_images"), \
+                ThreadPoolExecutor(max_workers=8) as pool:
             imgs = list(pool.map(
                 lambda n: load_gray(paths[n], long_side=cfg.img_resize,
                                     df=cfg.df, pad_to=cfg.img_resize),
@@ -155,13 +159,14 @@ class PairMatchingEngine:
         # One-deep software pipeline: launch batch i+1 before bringing back
         # batch i's results, so host staging overlaps device compute.
         pending = None
-        for start in range(0, len(pairs), step):
-            nxt = dispatch(start)
+        with self.profiler.record_function("engine/match_forward"):
+            for start in range(0, len(pairs), step):
+                nxt = dispatch(start)
+                if pending is not None:
+                    collect(*pending)
+                pending = nxt
             if pending is not None:
                 collect(*pending)
-            pending = nxt
-        if pending is not None:
-            collect(*pending)
         return out
 
     def match_scene(self, pairs: Sequence[Tuple[str, str]],
@@ -170,5 +175,6 @@ class PairMatchingEngine:
         keypoints and index matches."""
         images = self.load_images(image_paths)
         raw = self.match_pairs(pairs, images)
-        keypoints, scores, match_indices = merge_matches_to_keypoints(raw)
+        with self.profiler.record_function("engine/keypoint_merge"):
+            keypoints, scores, match_indices = merge_matches_to_keypoints(raw)
         return keypoints, scores, match_indices, raw

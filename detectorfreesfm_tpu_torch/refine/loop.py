@@ -17,6 +17,11 @@ Port of the JAX package's refine/loop.py, on one device. Per iteration:
   4. re-register dropped images on even iterations (not with
      `fix_all_poses`).
 
+The three steps open the JAX package's profiler scopes through a
+PassThroughProfiler (utils/profiler.py): `refine/pack_tracks`,
+`refine/multiview_match` and `refine/geometry_refinement`, seen in a
+`trace_to` trace. As in JAX, there is no `profiler=` argument.
+
 A failed iteration restores the model it started from and ends the loop
 (the reference's failure isolation). The failure is not hidden: pass
 `info={}` and it receives `iterations_completed`, `error` (the caught
@@ -52,6 +57,7 @@ from ..device import bf16_reduced_in_fp32, is_device_error, resolve_device
 from ..models.multiview_matcher import MultiviewRefiner, RefinerConfig
 from ..sfm.mapper import IncrementalMapper, MapperConfig
 from ..sfm.reconstruction import Reconstruction
+from ..utils.profiler import PassThroughProfiler
 from .bags import pack_track_table
 
 
@@ -195,13 +201,15 @@ def _build_refiner(rcfg: RefinerConfig, params, seed: int, dev):
 
 def _refine_iteration(rec, images_dev, image_order, params, cfg, mapper,
                       seed, verbose, it, dev) -> dict:
+    profiler = PassThroughProfiler()
     window = cfg.windows[min(it, len(cfg.windows) - 1)]
     rcfg = RefinerConfig(crop_size=window + cfg.crop_extra, window=window,
                          compute_dtype=cfg.compute_dtype)
     model = _build_refiner(rcfg, params, seed, dev)
 
     t0 = time.perf_counter()
-    table = pack_track_table(rec, max_track_length=cfg.max_track_length)
+    with profiler.record_function("refine/pack_tracks"):
+        table = pack_track_table(rec, max_track_length=cfg.max_track_length)
     pack_s = time.perf_counter() - t0
     # Reconcile table image indices with the staged global stack. Images
     # never referenced by a node may be absent from the stack; map them to
@@ -268,14 +276,15 @@ def _refine_iteration(rec, images_dev, image_order, params, cfg, mapper,
                 rec.images[img_id].xys[kpt] = coords[r, vpos]
 
     t0 = time.perf_counter()
-    pending = None
-    for start in range(0, T_total, chunk):
-        nxt = dispatch(start)
+    with profiler.record_function("refine/multiview_match"):
+        pending = None
+        for start in range(0, T_total, chunk):
+            nxt = dispatch(start)
+            if pending is not None:
+                collect(*pending)
+            pending = nxt
         if pending is not None:
             collect(*pending)
-        pending = nxt
-    if pending is not None:
-        collect(*pending)
     match_s = time.perf_counter() - t0
     moved = np.concatenate(shifts) if shifts else np.zeros(0)
 
@@ -289,16 +298,18 @@ def _refine_iteration(rec, images_dev, image_order, params, cfg, mapper,
         m.name_to_id = {im.name: i for i, im in rec.images.items()}
     thr = cfg.filter_thresholds[min(it, len(cfg.filter_thresholds) - 1)]
     t0 = time.perf_counter()
-    m.retriangulate(rec)  # structure follows the refined 2D points
-    n_merged = m.merge_tracks(rec, thr)
-    n_completed = (
-        m.complete_tracks(rec, thr) if hasattr(m, "kpt_track") else 0
-    )
-    if cfg.fix_all_poses:  # triangulation mode: structure-only BA
-        m.global_ba(rec, fixed_ids=set(rec.registered_images), gauge="full")
-    else:
-        m.global_ba(rec, fixed_ids=_farthest_pair(rec))
-    n_rm = m.filter_points(rec, thr, cfg.min_tri_angle_deg)
+    with profiler.record_function("refine/geometry_refinement"):
+        m.retriangulate(rec)  # structure follows the refined 2D points
+        n_merged = m.merge_tracks(rec, thr)
+        n_completed = (
+            m.complete_tracks(rec, thr) if hasattr(m, "kpt_track") else 0
+        )
+        if cfg.fix_all_poses:  # triangulation mode: structure-only BA
+            m.global_ba(rec, fixed_ids=set(rec.registered_images),
+                        gauge="full")
+        else:
+            m.global_ba(rec, fixed_ids=_farthest_pair(rec))
+        n_rm = m.filter_points(rec, thr, cfg.min_tri_angle_deg)
     geometry_s = time.perf_counter() - t0
     if verbose:
         print(f"  BA done at {thr}px: merged {n_merged}, "

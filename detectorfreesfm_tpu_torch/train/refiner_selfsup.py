@@ -111,3 +111,14 @@ def train_refiner_selfsup(
     checkpoint.save_checkpoint(
         out_path, checkpoint.state_dict_to_flax_variables(params))
     return params
+
+
+def load_refiner_params(path: str, cfg: Optional[RefinerConfig] = None,
+                        img_size: int = 64, n_views: int = 4,
+                        n_tracks: int = 8, device=None):
+    """The refiner state_dict of a checkpoint that train_refiner_selfsup
+    (or the refiner trainer) wrote, on `device` (None: CUDA), at the JAX
+    package's name and signature: utils.checkpoint.load_refiner_params.
+    `img_size`, `n_views` and `n_tracks` only shaped JAX's template init;
+    the port's template needs none."""
+    return checkpoint.load_refiner_params(path, cfg, device)

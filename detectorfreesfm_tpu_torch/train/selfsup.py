@@ -134,3 +134,12 @@ def train_matcher_selfsup(
     checkpoint.save_checkpoint(
         out_path, checkpoint.state_dict_to_flax_variables(params))
     return params
+
+
+def load_matcher_params(path: str, img_size: int = 416,
+                        cfg: Optional[MatcherConfig] = None):
+    """The matcher state_dict of a checkpoint that train_matcher_selfsup
+    (or a matcher trainer) wrote, at the JAX package's name and signature:
+    utils.checkpoint.load_matcher_params. `img_size` only shaped JAX's
+    template init; the port's template needs none."""
+    return checkpoint.load_matcher_params(path, cfg)

@@ -893,3 +893,44 @@ def test_alt_matcher_forward_on_the_card_equals_the_cpu(arch):
     assert len(cpu_rows) > 40
     assert len(cpu_rows & gpu_rows) / len(cpu_rows | gpu_rows) >= 0.99
     assert np.abs(gpu_conf - cpu_conf).max() <= 1e-4 * cpu_conf.max()
+
+
+@pytest.mark.cuda
+def test_trace_shows_both_passes_inside_match_forward(tmp_path):
+    """utils.profiler.trace_to of one fused batch (2 pairs at 256 px):
+    the Chrome trace holds the engine's `engine/match_forward` range and,
+    inside it, the kernels of dsm_pass1 and dsm_pass2 (CUPTI sees kernels
+    launched through ctypes too)."""
+    _needs_cuda()
+    import sys
+
+    sys.path.insert(0, REPO)
+    import chip_smoke
+    from detectorfreesfm_tpu_torch.data.images import from_array
+    from detectorfreesfm_tpu_torch.data.synthetic import (
+        SyntheticConfig,
+        generate_scene,
+    )
+    from detectorfreesfm_tpu_torch.match.engine import (
+        EngineConfig,
+        PairMatchingEngine,
+    )
+    from detectorfreesfm_tpu_torch.match.pairs import exhaustive_pairs
+    from detectorfreesfm_tpu_torch.utils.checkpoint import load_matcher_params
+    from detectorfreesfm_tpu_torch.utils.profiler import trace_to
+
+    imgs = generate_scene(1, SyntheticConfig(size=256, n_views=3))[0]
+    names = [f"v{i}" for i in range(3)]
+    images = {n: from_array(imgs[i]) for i, n in enumerate(names)}
+    pairs = exhaustive_pairs(names)[:2]
+    cfg = EngineConfig(img_resize=256, fused_matching=True, batch_size=2)
+    engine = PairMatchingEngine(
+        cfg, load_matcher_params(WEIGHTS, cfg.matcher_config()))
+    engine.match_pairs(pairs, images)  # warm-up: builds the kernels
+    with trace_to(str(tmp_path)):
+        engine.match_pairs(pairs, images)
+    found = chip_smoke.trace_kernels_in_range(str(tmp_path),
+                                              "engine/match_forward")
+    assert found["ranges"] == 1, found
+    assert found["kernels_in_range"]["dsm_pass1"] >= 1, found
+    assert found["kernels_in_range"]["dsm_pass2"] >= 1, found

@@ -1,8 +1,10 @@
 """The port's image IO (data/png.py with csrc/pngfilter.cpp, data/images.py
-and the native loader csrc/imageloader.cpp) against PIL and the JAX package's data/images.py, on
-files made from a seed. Tolerances: pixels and sizes exact; load_gray
-atol 1e-6 against the JAX native loader (both resize in double precision
-and round once to float32), exact for JPEG."""
+and the native loader csrc/imageloader.cpp) against PIL and the JAX
+package's data/images.py, on files made from a seed (the JPEG decoder,
+csrc/jpeg.cpp, is held on committed files in test_torch_jpeg.py).
+Tolerances: pixels and sizes exact; load_gray atol 1e-6 against the JAX
+native loader (both resize in double precision and round once to
+float32), exact for JPEG."""
 
 import io
 import os
@@ -347,18 +349,25 @@ def test_sample_colors_equal_jax(files):
 
 
 def test_auto_without_the_native_loader(files, monkeypatch):
-    """With the library unavailable, "auto" still reads PNG with the png
-    path and raises on a JPEG, naming libjpeg/libpng; "native" raises."""
+    """With the library unavailable (no libjpeg, as on the card), "auto"
+    still reads PNG with the png path and JPEG with the jpeg path, equal
+    to the JAX native loader and PIL; "native" raises naming libjpeg."""
     monkeypatch.setattr(TI, "_load_native", lambda: None)
     monkeypatch.setattr(TI, "_native_error", "RuntimeError: g++ failed")
     got = TI.load_gray(files["png1"], 256, 8, 256)
     assert TI.last_backend == "png"
     _same_loaded(got, JI.load_gray(files["png1"], 256, 8, 256,
                                    backend="native"), 1e-6)
+    for key in ("jpg1", "prog1"):
+        got = TI.load_gray(files[key], 256, 8, 256)
+        assert TI.last_backend == "jpeg"
+        _same_loaded(got, JI.load_gray(files[key], 256, 8, 256,
+                                       backend="native"), 0.0)
+        xy = np.array([[0.0, 0.0], [40.5, 17.2], [1e4, 3.0]])
+        np.testing.assert_array_equal(TI.sample_colors(files[key], xy),
+                                      JI.sample_colors(files[key], xy))
     with pytest.raises(RuntimeError, match="libjpeg"):
-        TI.load_gray(files["jpg1"], 256, 8, 256)
-    with pytest.raises(RuntimeError, match="libjpeg"):
-        TI.sample_colors(files["jpg1"], np.zeros((1, 2)))
+        TI.load_gray(files["jpg1"], 256, 8, 256, backend="native")
     with pytest.raises(RuntimeError, match="unavailable"):
         TI.load_gray(files["png1"], 256, 8, 256, backend="native")
     with pytest.raises(ValueError, match="not a PNG"):

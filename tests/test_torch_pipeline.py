@@ -14,7 +14,9 @@ With `--dtype bfloat16` the JAX CLI runs with `--dtype bfloat16` on the
 same files: JAX_RECONSTRUCT_BF16, the smoke's `bf16` run A. With `--arch
 aspan` it runs `--matcher-arch aspan --matcher-ckpt
 weights/demo_aspan_bf16.msgpack`: JAX_RECONSTRUCT_ASPAN, the smoke's `alt`
-run A.
+run A. With `--jpeg` it runs on the same scene with its images as the
+committed JPEG files (chip_smoke.write_jpeg_scene): JAX_RECONSTRUCT_JPEG,
+the smoke's run J.
 """
 
 import json
@@ -299,6 +301,13 @@ def test_smoke_reconstruct_gates_hold_the_card_to_jax():
                                   {"dsm_pass1": 1, "dsm_pass2": 1})
 
 
+def test_smoke_jpeg_reconstruct_gates_hold_the_card_to_jax():
+    """Run J (run A's scene as JPEG files): run A's gates against
+    JAX_RECONSTRUCT_JPEG, one launch of each pass."""
+    check_reconstruct_gate_bounds(chip_smoke.JAX_RECONSTRUCT_JPEG,
+                                  {"dsm_pass1": 1, "dsm_pass2": 1})
+
+
 def test_smoke_alt_reconstruct_gates_hold_the_card_to_jax():
     """The alt phase's run A (ASpan, dense): the same gates against
     JAX_RECONSTRUCT_ASPAN, with 0 launches of either pass required."""
@@ -390,19 +399,24 @@ def test_written_files_names_what_is_missing(tmp_path):
 # --- the script mode: JAX numbers for chip_smoke.py -------------------------
 
 
-def record_jax_reference(work, size=None, n_views=None, extra=()):
+def record_jax_reference(work, size=None, n_views=None, extra=(),
+                         jpeg=False):
     """JAX_RECONSTRUCT: the JAX CLI's result line and the numbers that
     chip_smoke.reconstruct_numbers reads from its output, on a scene that
     chip_smoke.write_scene writes under `work` (by default the smoke's
-    run A scene); with the run's stage times."""
+    run A scene; with `jpeg`, chip_smoke.write_jpeg_scene's run J scene);
+    with the run's stage times."""
     jax.config.update("jax_platforms", "cpu")
     import chip_smoke
 
     from detectorfreesfm_tpu import cli as jax_cli
 
     scene = os.path.join(work, "scene")
-    chip_smoke.write_scene(scene, size=size or chip_smoke.RECON_SIZE,
-                           n_views=n_views or chip_smoke.RECON_VIEWS)
+    if jpeg:
+        chip_smoke.write_jpeg_scene(scene)
+    else:
+        chip_smoke.write_scene(scene, size=size or chip_smoke.RECON_SIZE,
+                               n_views=n_views or chip_smoke.RECON_VIEWS)
     return chip_smoke.run_reconstruct(jax_cli.main, scene,
                                       os.path.join(work, "jax_out"), *extra)
 
@@ -418,6 +432,8 @@ if __name__ == "__main__":
     ap.add_argument("--dtype", default="float32",
                     choices=("float32", "bfloat16"))
     ap.add_argument("--arch", default="loftr", choices=("loftr", "aspan"))
+    ap.add_argument("--jpeg", action="store_true",
+                    help="run J's scene: the committed JPEG files")
     args = ap.parse_args()
     import json
 
@@ -426,6 +442,7 @@ if __name__ == "__main__":
         extra += ("--matcher-arch", "aspan", "--matcher-ckpt",
                   chip_smoke.ASPAN_WEIGHTS)
     with tempfile.TemporaryDirectory() as d:
-        got, run = record_jax_reference(args.work or d, extra=extra)
+        got, run = record_jax_reference(args.work or d, extra=extra,
+                                        jpeg=args.jpeg)
     print(json.dumps(got), flush=True)
     print(json.dumps(run), flush=True)
