@@ -119,6 +119,28 @@ standard library, numpy, torch and the port. Phases, one JSON line each:
            either pass on every run; reported: warm pairs/s, device ms of
            a batch, step seconds and peak memory; full report in
            build/smoke_alt/alt.json
+  mesh     parallel/mesh.py on the card, reusing main's engine results,
+           the sfm phase's coarse model and the train phase's files:
+           (a) main's 6 pairs on a two-entry mesh of the one card
+           ([cuda:0, cuda:0], batches of 2 per entry, fused) equal main's
+           matches bit for bit, with 2 launches of each pass per entry,
+           and its warm pairs/s; (b) one refinement iteration with
+           2 x 256-track blocks equals 256-track chunks on one entry; (c)
+           the geometry phase's 60- and 250-camera BA problems, sharded,
+           equal the unsharded solve bit for bit (seconds of both); (d)
+           one Trainer and one MatcherTrainer step on 3 rows padded to 4:
+           1e-5 of one entry, and JAX's 2-device mesh (JAX_MESH_TRAIN,
+           `python tests/test_torch_mesh.py --record`) at the train
+           phase's step-0 tolerances; (e) two processes of this script
+           (`--dp-worker`) in a gloo group on the one card, CUDA tensors:
+           a MatcherTrainer step on 2 + 2 rows equals one process's on 4
+           (loss 1e-5 relative of one entry; parameters 1e-6 of a
+           two-entry mesh, see finish_dp) and `train-matcher`
+           through cli.main writes byte-equal checkpoints and equal
+           logged losses on both ranks; (f) where a second card is
+           present, (a) over [cuda:0, cuda:1] and (e) over NCCL with one
+           card per process, else "two_cards": "not available"; full
+           report in build/smoke_mesh/mesh.json
 
 The build_image_loader phase builds the JPEG decoder (csrc/jpeg.cpp, g++
 and the standard library alone; it must build), the PNG unfilter, and the
@@ -373,10 +395,11 @@ def profile_batch(engine, pairs, images):
                      for e in top])
 
 
-def main_path(params, dtype="float32"):
+def main_path(params, dtype="float32", keep=None):
     """The 6 pairs through PairMatchingEngine with the kernels (batches of
     2), held to the dense path and to the JAX engine of the same compute
-    dtype (JAX_MAIN)."""
+    dtype (JAX_MAIN). `keep` (a dict) receives the fused matches ("raw"),
+    the scene's images and pairs."""
     from detectorfreesfm_tpu_torch.data.images import from_array
     from detectorfreesfm_tpu_torch.data.synthetic import (
         SyntheticConfig,
@@ -419,6 +442,8 @@ def main_path(params, dtype="float32"):
     torch.cuda.synchronize()
     fused_s = time.time() - t0
     launches = dict(fused_dsm.launches)
+    if keep is not None:
+        keep.update(raw=raw, images=images, pairs=pairs)
     # One dsm_pass1 and one dsm_pass2 per batch of 2 pairs.
     check(launches == {"dsm_pass1": 3, "dsm_pass2": 3},
           "kernel launches on the main path", launches)
@@ -1841,11 +1866,15 @@ def demo_caches():
     return out
 
 
-def sfm_reference(backend, keypoints, match_indices, demo):
+def sfm_reference(backend, keypoints, match_indices, demo, keep=None):
     """The gated numbers of the sfm phase through one backend (the port's
     mapper and refinement, or the JAX package's), with each run's report.
     `backend.mapper(**cfg)` makes a mapper; `backend.refine(rec, images,
-    mapper)` refines in place and returns its info dict."""
+    mapper)` refines in place and returns its info dict. `keep` (a dict)
+    receives a copy of the model and mapper before refinement ("coarse")
+    and the images ("images")."""
+    import copy
+
     from detectorfreesfm_tpu_torch.data.synthetic import (
         SyntheticConfig,
         generate_scene,
@@ -1876,6 +1905,8 @@ def sfm_reference(backend, keypoints, match_indices, demo):
         got[tag] = model_numbers(rec)
     rec, mapper = models["a_known"]
     images = {rec.image_by_name(n).id: imgs[i] for i, n in enumerate(names)}
+    if keep is not None:
+        keep.update(coarse=copy.deepcopy((rec, mapper)), images=images)
     t0 = time.time()
     info = backend.refine(rec, images, mapper)
     its = info["iterations"]
@@ -1962,9 +1993,10 @@ def _check_sfm_gates(got, ref):
           g["median_shift_px_0"], r["median_shift_px_0"])
 
 
-def sfm_phase(keypoints, match_indices):
+def sfm_phase(keypoints, match_indices, keep=None):
     """The mapper and refinement on the card from the main path's matches
-    and the cached demo matches; held to JAX_SFM."""
+    and the cached demo matches; held to JAX_SFM. `keep`: see
+    sfm_reference."""
     t_phase = time.time()
     workdir = os.path.join(REPO, "build", "smoke_sfm")
     os.makedirs(workdir, exist_ok=True)
@@ -1972,7 +2004,7 @@ def sfm_phase(keypoints, match_indices):
     backend = PortSfm("cuda")
     load_s = time.time() - t0
     got, report = sfm_reference(backend, keypoints, match_indices,
-                                demo_caches())
+                                demo_caches(), keep)
     summary = dict(sfm_summary(report), sfm_s=time.time() - t_phase,
                    refiner_load_s=load_s)
     full = dict(summary, got=got, jax=JAX_SFM, report=report)
@@ -3583,6 +3615,7 @@ def reset_launches():
 
     for k in fused_dsm.launches:
         fused_dsm.launches[k] = 0
+    fused_dsm.launches_by_device.clear()
 
 
 def read_launches():
@@ -3824,11 +3857,507 @@ def alt_phase():
     return report
 
 
+# --- mesh ----------------------------------------------------------------------
+
+CARD = "cuda:0"        # the card that the one-entry runs use
+MESH_TRAIN_SIZE = 416  # the train phase's 832 px tuples, resized
+MESH_TRAIN_ROWS = 3    # padded to 4 on a two-entry mesh
+MESH_DP_ROWS = 4       # the global batch split 2 + 2 over two processes
+# Gate (c): the geometry phase's 60- and 250-camera problems (cameras,
+# points, seed, LM iterations; 5 at 250 cameras to time the copies).
+MESH_BA = {"cams60": (60, 15000, 3, 15), "cams250": (250, 60000, 4, 5)}
+# JAX's Trainer (r4 warm start, window 15, 200 tracks) and MatcherTrainer
+# (--fine, r5 warm start) on a 2-device mesh, 3 rows padded to 4: the
+# step's loss and gradient norm, recorded with `python
+# tests/test_torch_mesh.py --record` (mesh_train_tuples' rows).
+JAX_MESH_TRAIN = {"train": {"loss": 0.6546615958213806,
+                             "grad_norm": 5.212239742279053},
+                  "train_matcher": {"loss": 2.001101016998291,
+                                    "grad_norm": 1.4202836751937866}}
+
+
+def mesh_train_tuples(data, n=MESH_TRAIN_ROWS):
+    """The first n tuples of the train phase's scene 0, at
+    MESH_TRAIN_SIZE, through the port's dataset."""
+    from detectorfreesfm_tpu_torch.data.megadepth import (
+        MegaDepthTupleDataset, load_scene_index)
+
+    ds = MegaDepthTupleDataset(load_scene_index(
+        os.path.join(data, "scene0.npz")), img_size=MESH_TRAIN_SIZE)
+    return [ds[i] for i in range(n)]
+
+
+def _same_matches(a, b):
+    """Pair for pair, the same keypoints and confidences, bit for bit."""
+    return list(a) == list(b) and all(
+        np.array_equal(a[p][k], b[p][k]) for p in a
+        for k in ("kpts0", "kpts1", "conf"))
+
+
+def mesh_engine(params, main_keep, devices):
+    """(a) main's 6 pairs through an engine on `devices`, batches of 2 per
+    entry, fused: the matches of main's one-entry engine, bit for bit, and
+    each entry's launches (2 steps x 1 per entry); warm pairs/s."""
+    from detectorfreesfm_tpu_torch.match.engine import (EngineConfig,
+                                                        PairMatchingEngine)
+    from detectorfreesfm_tpu_torch.ops import fused_dsm
+    from detectorfreesfm_tpu_torch.parallel.mesh import make_mesh
+
+    pairs, images = main_keep["pairs"], main_keep["images"]
+    engine = PairMatchingEngine(EngineConfig(
+        img_resize=832, fine_enabled=True, round_matches_ratio=4,
+        fused_matching=True, batch_size=2), params,
+        mesh=make_mesh(devices=devices))
+    engine.match_pairs(pairs, images)  # warm-up (cuDNN per card, kernels)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.time()
+    raw = engine.match_pairs(pairs, images)
+    for d in set(devices):
+        torch.cuda.synchronize(d)
+    warm_s = time.time() - t0
+    by_dev = {k: dict(v) for k, v in fused_dsm.launches_by_device.items()}
+    steps = -(-len(pairs) // (2 * len(devices)))
+    want = {}  # one launch of each pass per entry and step
+    for d in map(str, map(torch.device, devices)):
+        want[d] = want.get(d, 0) + steps
+    out = dict(devices=[str(d) for d in devices], warm_s=warm_s,
+               pairs_per_s=len(pairs) / warm_s, launches=read_launches(),
+               launches_by_device=by_dev,
+               equal_to_main=_same_matches(raw, main_keep["raw"]))
+    check(out["equal_to_main"], "mesh (a): matches differ from main's",
+          devices)
+    check(by_dev == {d: {"dsm_pass1": n, "dsm_pass2": n}
+                     for d, n in want.items()},
+          "mesh (a): launches by device", devices, by_dev, want)
+    return out
+
+
+def mesh_refine(sfm_keep, mesh):
+    """(b) One refinement iteration of the sfm phase's coarse model (r4,
+    window 15): chunks of 2 x 256 tracks on the two-entry mesh give the
+    keypoints and model of 256-track chunks on one entry (the same
+    blocks), bit for bit."""
+    import copy
+
+    from detectorfreesfm_tpu_torch.refine.loop import (RefineConfig,
+                                                       refine_reconstruction)
+    from detectorfreesfm_tpu_torch.utils.checkpoint import load_refiner_params
+
+    params = load_refiner_params(REFINER_WEIGHTS, device=CARD)
+    runs, secs = [], []
+    for chunk, where in ((256, {"device": CARD}), (512, {"mesh": mesh})):
+        rec, mapper = copy.deepcopy(sfm_keep["coarse"])
+        info = {}
+        t0 = time.time()
+        refine_reconstruction(rec, sfm_keep["images"], params,
+                              RefineConfig(n_iters=1, chunk_tracks=chunk),
+                              mapper=mapper, info=info, **where)
+        secs.append(time.time() - t0)
+        check(info["iterations_completed"] == 1, "mesh (b): refinement",
+              info["error"])
+        runs.append((rec, info["iterations"][0]))
+    (one, it1), (two, it2) = runs
+    same = all(np.array_equal(two.images[i].xys, im.xys)
+               for i, im in one.images.items())
+    same_pts = sorted(two.points) == sorted(one.points) and all(
+        np.array_equal(two.points[p]["xyz"], pt["xyz"])
+        for p, pt in one.points.items())
+    out = dict(tracks=it2["tracks"], chunks_one_entry=it1["chunks"],
+               chunks_mesh=it2["chunks"], one_entry_s=secs[0],
+               mesh_s=secs[1], forward_ms_one_entry=sum(it1["forward_ms"]),
+               forward_ms_mesh=sum(it2["forward_ms"]),
+               keypoints_equal=same, points_equal=same_pts)
+    check(same and same_pts, "mesh (b): refined model differs", out)
+    return out
+
+
+def mesh_ba(mesh):
+    """(c) The geometry phase's 60-camera problem (dense Schur) and its
+    250-camera one (PCG, 5 LM iterations): the two-entry mesh's solve
+    equals the unsharded one bit for bit; seconds of both."""
+    from detectorfreesfm_tpu_torch.sfm.ba import bundle_adjust
+
+    out = {}
+    for tag, (n_cams, n_pts, seed, iters) in MESH_BA.items():
+        args, kw, _K = ba_synthetic(n_cams, n_pts, seed)
+        kw = dict(kw, max_iters=iters)
+        res, rec = [], {}
+        for name, where in (("one_entry", {"device": CARD}),
+                            ("mesh", {"mesh": mesh})):
+            info = {}
+            torch.cuda.synchronize()
+            t0 = time.time()
+            res.append(bundle_adjust(*args, info=info, **kw, **where))
+            rec[f"{name}_s"] = time.time() - t0
+            rec[f"{name}_info"] = info
+        rec.update(observations=len(args[4]),
+                   bit_equal=all(np.array_equal(a, b)
+                                 for a, b in zip(*res)),
+                   cost_per_obs=res[1][4])
+        rec["max_abs_diff"] = [float(np.abs(np.asarray(a)
+                                            - np.asarray(b)).max())
+                               for a, b in zip(*res)]
+        out[tag] = rec
+        check(rec["bit_equal"], "mesh (c): sharded BA differs", tag,
+              rec["max_abs_diff"])
+    return out
+
+
+def _mesh_trainers():
+    """The Trainer and MatcherTrainer configs of gate (d) and the JAX
+    record: the train phase's verbs' (window 15, 200 tracks; --fine),
+    warm-started from r4 and r5."""
+    from detectorfreesfm_tpu_torch.models.loftr import MatcherConfig
+    from detectorfreesfm_tpu_torch.models.multiview_matcher import (
+        RefinerConfig)
+    from detectorfreesfm_tpu_torch.train.matcher_trainer import (
+        MatcherTrainConfig)
+    from detectorfreesfm_tpu_torch.train.optimizers import OptimConfig
+    from detectorfreesfm_tpu_torch.train.trainer import TrainConfig
+
+    return (TrainConfig(refiner=RefinerConfig(crop_size=19, window=15),
+                        optim=OptimConfig(true_batch_size=MESH_TRAIN_ROWS),
+                        n_tracks=200),
+            MatcherTrainConfig(matcher=MatcherConfig(fine_enabled=True),
+                               optim=OptimConfig(
+                                   true_batch_size=MESH_DP_ROWS,
+                                   backbone_path="backbone")))
+
+
+def mesh_train(data, mesh):
+    """(d) One step of each trainer on 3 rows: on the two-entry mesh
+    (padded to 4) against one entry (loss and gradient norm 1e-5
+    relative) and against JAX's 2-device mesh (JAX_MESH_TRAIN, the train
+    phase's step-0 tolerances)."""
+    from detectorfreesfm_tpu_torch.data.megadepth import collate
+    from detectorfreesfm_tpu_torch.train.matcher_trainer import (
+        MatcherTrainer, tuple_to_pair_batch)
+    from detectorfreesfm_tpu_torch.train.trainer import Trainer
+    from detectorfreesfm_tpu_torch.utils import prng
+
+    tuples = mesh_train_tuples(data)
+    tcfg, mcfg = _mesh_trainers()
+    rng = np.asarray(prng.fold_in(prng.PRNGKey(tcfg.seed), 0))
+    jobs = {
+        "train": (lambda **w: Trainer(tcfg, **w), REFINER_W,
+                  collate(tuples), (rng,)),
+        "train_matcher": (lambda **w: MatcherTrainer(mcfg, **w), WEIGHTS,
+                          tuple_to_pair_batch(tuples), ())}
+    out = {}
+    for name, (make, weights, batch, extra) in jobs.items():
+        rec = {}
+        for where, kw in (("one_entry", {"device": CARD}),
+                          ("mesh", {"mesh": mesh})):
+            tr = make(**kw)
+            state = tr.init_state()
+            state = state._replace(params=tr.load_params(weights,
+                                                         state.params))
+            torch.cuda.synchronize()
+            t0 = time.time()
+            _state, loss = tr.train_step(state, batch, *extra)
+            rec[where] = dict(loss=float(loss),
+                              grad_norm=tr.history[-1]["grad_norm"],
+                              step_s=time.time() - t0)
+            del tr, state, _state
+        ref = rec["jax"] = JAX_MESH_TRAIN[name]
+        out[name] = rec
+        g, one = rec["mesh"], rec["one_entry"]
+        for k in ("loss", "grad_norm"):
+            check(_rel(g[k], one[k]) <= 1e-5, "mesh (d):", name, k,
+                  "against one entry", g[k], one[k])
+        check(_rel(g["loss"], ref["loss"]) <= TRAIN_TOL["loss0"],
+              "mesh (d):", name, "loss against JAX", g["loss"], ref["loss"])
+        check(_rel(g["grad_norm"], ref["grad_norm"])
+              <= TRAIN_TOL["grad_norm0"], "mesh (d):", name,
+              "gradient norm against JAX", g["grad_norm"], ref["grad_norm"])
+    return out
+
+
+def dp_step(tr, state, rows, deterministic=True):
+    """The split-batch gate's step, reproducible across processes:
+    torch's deterministic algorithms (the backward of the fine stage's
+    overlapping window gather otherwise adds with atomics in any order)
+    and cuDNN off (it picks among its algorithms by the workspace that the
+    card's free memory allows, which differs from process to process; the
+    convolutions then run as cuBLAS products, whose choice does not
+    depend on it)."""
+    if not deterministic:
+        return tr.train_step(state, rows)
+    # torch asks for cuBLAS's fixed workspace before deterministic mode.
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    prev = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        with torch.backends.cudnn.flags(enabled=False):
+            return tr.train_step(state, rows)
+    finally:
+        torch.use_deterministic_algorithms(prev)
+
+
+def dp_worker(rank, port, work, backend):
+    """One process of gate (e)/(f): joins the group (the caller's, as a
+    torchrun wrapper would make it), steps a MatcherTrainer on its half of
+    the global batch, then runs `train-matcher` for 2 steps through
+    cli.main, each rank on its own scene index."""
+    import torch.distributed as dist
+
+    from detectorfreesfm_tpu_torch import cli
+    from detectorfreesfm_tpu_torch.device import set_fp32_backends
+    from detectorfreesfm_tpu_torch.train.matcher_trainer import (
+        MatcherTrainer)
+
+    os.environ.pop("LOCAL_RANK", None)  # the rank picks its card
+    if backend == "nccl":
+        torch.cuda.set_device(rank)
+    dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=2, rank=rank)
+    set_fp32_backends()
+    half = MESH_DP_ROWS // 2
+    with np.load(os.path.join(work, "batch.npz")) as f:
+        rows = {k: f[k][rank * half:(rank + 1) * half] for k in f.files}
+    tr = MatcherTrainer(_mesh_trainers()[1])  # the rank's card
+    state = tr.init_state()
+    state = state._replace(params=tr.load_params(WEIGHTS, state.params))
+    state, loss = dp_step(tr, state, rows)
+    torch.save({"loss": float(loss), "grad_norm": tr.history[-1]["grad_norm"],
+                "device": str(tr.device),
+                "max_memory_allocated_gib":
+                    torch.cuda.max_memory_allocated(tr.device) / 2 ** 30,
+                "params": {k: v.cpu() for k, v in state.params.items()}},
+               os.path.join(work, f"step{rank}.pt"))
+    del tr, state
+    torch.cuda.empty_cache()
+    out = os.path.join(work, f"rank{rank}")
+    rc = cli.main([
+        "train-matcher", "--data", os.path.join(work, "data"), "--output",
+        out, "--img-resize", str(MESH_TRAIN_SIZE), "--batch-size", "1",
+        "--samples-per-scene", "2", "--max-steps", "2", "--log-every", "1",
+        "--fine", "--init-ckpt", WEIGHTS, "--log-json",
+        os.path.join(out, "log.jsonl")])
+    dist.barrier()
+    dist.destroy_process_group()
+    return rc
+
+
+def start_dp(work, backend):
+    """Two dp_worker processes of this script, on a free local port, and
+    a third for their reference (dp_reference)."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    return [_script_process(work, f"worker{r}", "--dp-worker", str(r),
+                            str(port), work, backend) for r in range(2)] + [
+        _script_process(work, "reference", "--dp-reference", work)]
+
+
+def _script_process(work, name, *args):
+    """This script in another process (output in work/name.log), with
+    cuBLAS's fixed workspace from its start, as deterministic mode asks:
+    every process of gate (e) then has the same cuBLAS set-up."""
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    with open(os.path.join(work, f"{name}.log"), "w") as log:
+        return subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                                 *args], stdout=log,
+                                stderr=subprocess.STDOUT, env=env)
+
+
+def _wait(procs, work, names, timeout=240):
+    """Wait for the processes (killed past `timeout`); each must exit 0."""
+    try:
+        for p in procs:
+            p.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for name, p in zip(names, procs):
+        with open(os.path.join(work, f"{name}.log")) as f:
+            log = f.read()
+        check(p.returncode == 0, f"mesh (e): {name} exit {p.returncode}",
+              log[-4000:])
+
+
+def finish_dp(procs, work):
+    """Wait for both workers and their reference (one process's steps on
+    the whole batch, dp_reference), and hold the workers to each other
+    and to it: the loss within 1e-5
+    relative of the one-entry step, the parameters within 1e-6 of the
+    two-entry step, which sums the same two blocks in the same order.
+    Against the one-entry step the parameters are reported, as is the
+    verbs' own step against its rerun: Adam's first step divides each
+    gradient by its magnitude plus 1e-8, so an element whose gradient is
+    near 1e-8 turns the last bits of another summation order into a
+    visible part of the learning rate."""
+    _wait(procs, work, ["worker0", "worker1", "reference"])
+    ref = torch.load(os.path.join(work, "reference.pt"))
+    steps = [torch.load(os.path.join(work, f"step{r}.pt")) for r in (0, 1)]
+    ckpts, losses = [], []
+    for r in (0, 1):
+        with open(os.path.join(work, f"rank{r}", "matcher_ep0.msgpack"),
+                  "rb") as f:
+            ckpts.append(f.read())
+        with open(os.path.join(work, f"rank{r}", "log.jsonl")) as f:
+            losses.append([json.loads(ln)["loss"] for ln in f])
+    p0, p1 = (s["params"] for s in steps)
+
+    def diff(other):
+        return max(float((p0[k] - other[k].cpu()).abs().max()) for k in p0)
+
+    one, two = ref["one_entry"], ref["two_entries"]
+    out = dict(devices=[s["device"] for s in steps],
+               step_max_memory_allocated_gib=[
+                   s["max_memory_allocated_gib"] for s in steps],
+               reference_max_memory_allocated_gib={
+                   k: v["max_memory_allocated_gib"] for k, v in ref.items()},
+               losses=[s["loss"] for s in steps],
+               grad_norms=[s["grad_norm"] for s in steps],
+               one_entry={k: one[k] for k in ("loss", "grad_norm")},
+               two_entries={k: two[k] for k in ("loss", "grad_norm")},
+               max_param_diff_vs_one_entry=diff(one["params"]),
+               max_param_diff_vs_two_entries=diff(two["params"]),
+               verb_mode_rerun_max_param_diff=max(
+                   float((ref["verb_mode"]["params"][k]
+                          - ref["verb_mode_again"]["params"][k]).abs().max())
+                   for k in p0),
+               ranks_params_equal=all(torch.equal(p0[k], p1[k]) for k in p0),
+               verb_losses=losses,
+               verb_checkpoints_equal=ckpts[0] == ckpts[1],
+               verb_checkpoint_bytes=len(ckpts[0]))
+    check(out["ranks_params_equal"], "mesh (e): ranks' parameters differ")
+    check(all(_rel(x, one["loss"]) <= 1e-5 for x in out["losses"]),
+          "mesh (e): split-batch loss", out["losses"], one["loss"])
+    check(out["max_param_diff_vs_two_entries"] <= 1e-6,
+          "mesh (e): parameters against one process",
+          out["max_param_diff_vs_two_entries"])
+    check(len(losses[0]) == 2 and losses[0] == losses[1]
+          and all(np.isfinite(losses[0])), "mesh (e): logged losses",
+          losses)
+    check(out["verb_checkpoints_equal"], "mesh (e): checkpoints differ")
+    return out
+
+
+def dp_reference(work):
+    """The third process of gate (e): one process's step on the whole
+    global batch, on one entry and on a two-entry mesh of the card (the
+    ranks' 2 + 2 rows as its blocks), deterministic; and twice on one
+    entry as the verbs run (benchmark mode, atomics), whose difference is
+    the step's own noise. Saved to work/reference.pt."""
+    from detectorfreesfm_tpu_torch.device import set_fp32_backends
+    from detectorfreesfm_tpu_torch.parallel.mesh import make_mesh
+    from detectorfreesfm_tpu_torch.train.matcher_trainer import (
+        MatcherTrainer)
+
+    set_fp32_backends()
+    with np.load(os.path.join(work, "batch.npz")) as f:
+        rows = {k: f[k] for k in f.files}
+    out = {}
+    for name, where, det in (
+            ("one_entry", {"device": CARD}, True),
+            ("two_entries", {"mesh": make_mesh(devices=[CARD, CARD])}, True),
+            ("verb_mode", {"device": CARD}, False),
+            ("verb_mode_again", {"device": CARD}, False)):
+        torch.cuda.reset_peak_memory_stats()
+        tr = MatcherTrainer(_mesh_trainers()[1], **where)
+        state = tr.init_state()
+        state = state._replace(params=tr.load_params(WEIGHTS, state.params))
+        state, loss = dp_step(tr, state, rows, det)
+        out[name] = dict(loss=float(loss),
+                         grad_norm=tr.history[-1]["grad_norm"],
+                         max_memory_allocated_gib=torch.cuda
+                         .max_memory_allocated() / 2 ** 30,
+                         params={k: v.cpu() for k, v in state.params.items()})
+        del tr, state
+    torch.save(out, os.path.join(work, "reference.pt"))
+    return 0
+
+
+def mesh_phase(params, main_keep, sfm_keep):
+    """The mesh phase (see the module docstring): (a) the engine, (b)
+    refinement, (c) BA and (d) both trainers on a two-entry mesh of the
+    one card, (e) data-parallel training in two processes over gloo with
+    CUDA tensors, (f) where a second card is present, (a) over two cards
+    and (e) over NCCL with one card per process."""
+    import shutil
+
+    from detectorfreesfm_tpu_torch.parallel.mesh import make_mesh
+    from detectorfreesfm_tpu_torch.train.matcher_trainer import (
+        tuple_to_pair_batch)
+
+    t_phase = time.time()
+    work = os.path.join(REPO, "build", "smoke_mesh")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    train_data = os.path.join(REPO, "build", "smoke_train", "data")
+    one_card = [CARD, CARD]
+    mesh = make_mesh(devices=one_card)
+    report, laps = {}, {}
+
+    t0 = time.time()
+    report["engine"] = mesh_engine(params, main_keep, one_card)
+    laps["engine_s"] = time.time() - t0
+
+    # (e) runs beside (b) and (c), which need little of the card: the
+    # inputs, then the workers and their reference.
+    t0 = time.time()
+    dp = {}
+    for backend in ("gloo",) + (("nccl",) if torch.cuda.device_count() >= 2
+                                else ()):
+        d = os.path.join(work, backend)
+        os.makedirs(d)
+        shutil.copytree(train_data, os.path.join(d, "data"))
+        np.savez(os.path.join(d, "batch.npz"), **tuple_to_pair_batch(
+            mesh_train_tuples(train_data, MESH_DP_ROWS)))
+        dp[backend] = d
+    torch.cuda.empty_cache()  # room for the workers on the card
+    procs = start_dp(dp["gloo"], "gloo")
+    laps["dp_start_s"] = time.time() - t0
+
+    t0 = time.time()
+    report["refine"] = mesh_refine(sfm_keep, mesh)
+    laps["refine_s"] = time.time() - t0
+    t0 = time.time()
+    report["ba"] = mesh_ba(mesh)
+    laps["ba_s"] = time.time() - t0
+
+    t0 = time.time()
+    report["dp_gloo"] = finish_dp(procs, dp["gloo"])
+    laps["dp_gloo_s"] = time.time() - t0
+    t0 = time.time()
+    report["train"] = mesh_train(train_data, mesh)
+    laps["train_s"] = time.time() - t0
+
+    if torch.cuda.device_count() >= 2:
+        t0 = time.time()
+        two = [CARD, "cuda:1"]
+        report["two_cards"] = dict(
+            engine=mesh_engine(params, main_keep, two),
+            dp_nccl=finish_dp(start_dp(dp["nccl"], "nccl"), dp["nccl"]))
+        laps["two_cards_s"] = time.time() - t0
+    else:
+        report["two_cards"] = "not available"
+    report.update(laps, mesh_s=time.time() - t_phase)
+    with open(os.path.join(work, "mesh.json"), "w") as f:
+        json.dump(report, f, indent=1, default=float)
+    return report
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
     sys.path.insert(0, REPO)
+    if "--dp-worker" in sys.argv:  # the processes of the mesh phase's (e)
+        i = sys.argv.index("--dp-worker")
+        return dp_worker(int(sys.argv[i + 1]), sys.argv[i + 2],
+                         sys.argv[i + 3], sys.argv[i + 4])
+    if "--dp-reference" in sys.argv:
+        return dp_reference(sys.argv[sys.argv.index("--dp-reference") + 1])
     from detectorfreesfm_tpu_torch.device import set_fp32_backends
     from detectorfreesfm_tpu_torch.ops import _build, fused_dsm
     from detectorfreesfm_tpu_torch.utils.checkpoint import load_matcher_params
@@ -3899,7 +4428,8 @@ def main():
           "n_params": n_params})
 
     t0 = time.time()
-    keypoints, match_indices, main_res = main_path(params)
+    main_keep = {}
+    keypoints, match_indices, main_res = main_path(params, keep=main_keep)
     emit({"phase": "main", "seconds": time.time() - t0, **main_res})
 
     t0 = time.time()
@@ -3909,7 +4439,8 @@ def main():
     geo = geometry_phase(keypoints, match_indices)
     emit({"phase": "geometry", **geo})
 
-    sfm = sfm_phase(keypoints, match_indices)
+    sfm_keep = {}
+    sfm = sfm_phase(keypoints, match_indices, keep=sfm_keep)
     emit({"phase": "sfm", **sfm})
 
     recon = reconstruct_phase()
@@ -3927,6 +4458,9 @@ def main():
 
     alt = alt_phase()
     emit({"phase": "alt", **alt})
+
+    mesh = mesh_phase(params, main_keep, sfm_keep)
+    emit({"phase": "mesh", "nvidia_smi": smi, **mesh})
 
     replaces = {
         "dsm_pass1": "detectorfreesfm_tpu/ops/pallas_dsm.py:98 (_pass1_kernel)",
@@ -3963,6 +4497,8 @@ def main():
                 **{f"alt_train_{a}": g["launches"][kname]
                    for a, g in alt["train"].items()},
                 "alt_serve_matchformer": alt["serve_matchformer"][
+                    "launches"][kname],
+                "mesh_engine_one_card_two_entries": mesh["engine"][
                     "launches"][kname]},
             "shape": verb_k["shape"],
             "max_abs_err": k["max_abs_err"], "ms": k["ms"],

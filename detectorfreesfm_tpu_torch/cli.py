@@ -5,7 +5,16 @@ Port of the JAX package's cli.py: the `reconstruct` and `eval-dataset`
 verbs and the four training verbs, with every option of their parsers and
 the same defaults, plus `--device` (default cuda; cpu is for tests) and,
 on the training verbs, `--log-json PATH` (one JSON line per step: loss,
-gradient norm, seconds):
+gradient norm, seconds). `--device cuda` takes every visible card, as JAX
+takes every visible device (parallel/mesh.py): matching, refinement, BA
+and the `train`/`train-matcher` steps shard over them; another value
+(`cpu`, `cuda:1`) runs on that one device. Under a torch.distributed
+group that the caller initialised (for example a `torchrun` wrapper that
+calls `init_process_group` and then `main`), each process takes its own
+card, `eval-dataset` strides scenes over the processes, `train` and
+`train-matcher` shard scene indexes over them and sum their gradients
+(every process steps the same weights and, as in JAX, writes the same
+checkpoints and --log-json losses):
 
   python -m detectorfreesfm_tpu_torch.cli reconstruct --images DIR --output DIR
   python -m detectorfreesfm_tpu_torch.cli reconstruct --scene DIR --output DIR
@@ -493,7 +502,8 @@ def cmd_train_refiner_selfsup(args) -> int:
 
 def _add_train_io(sp):
     sp.add_argument("--device", default="cuda",
-                    help="torch device (default cuda, which must be present)")
+                    help="torch device (default cuda: every visible card, "
+                         "which must be present)")
     sp.add_argument("--log-json", default=None, dest="log_json",
                     help="write one JSON line per step (loss, gradient "
                          "norm, seconds) to this file")
@@ -586,9 +596,9 @@ def main(argv=None) -> int:
                              " degrees (COLMAP Mapper.filter_min_tri_angle;"
                              " lower to 1.0 on small wide-baseline scenes)")
         sp.add_argument("--device", default="cuda",
-                        help="torch device (default cuda, which must be "
-                             "present; cpu runs the plain versions of the "
-                             "kernels)")
+                        help="torch device (default cuda: every visible "
+                             "card, which must be present; cpu runs the "
+                             "plain versions of the kernels)")
 
     sr = sub.add_parser("reconstruct", help="reconstruct one scene")
     sr.add_argument("--images", default=None, help="image directory")

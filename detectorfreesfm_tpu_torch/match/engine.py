@@ -1,16 +1,18 @@
-"""Batched pair-matching engine on one GPU.
+"""Batched, mesh-sharded pair-matching engine.
 
-Port of the JAX package's match/engine.py. The mesh becomes a plain batch:
-pairs are staged on the host into a fixed square frame, stacked into
-batches of `batch_size` (the last one padded with repeats, whose results are
-dropped), and run through one matcher forward each: DetectorFreeMatcher for
-the LoFTR family, or the ASpan and MatchFormer matchers of
-models.build_matcher, built as JAX builds them (threshold, capacity and
-compute dtype; the fine stage and the fused kernels are the LoFTR
-family's). Variable
-match counts come back as fixed-capacity slots with validity masks; the
-conversion to original pixels, the optional rounding to a pixel grid and
-the scene-level keypoint merge (ops/grid_merge.py) run on the host.
+Port of the JAX package's match/engine.py. Pairs are staged on the host
+into a fixed square frame and stacked into steps of `batch_size` pairs per
+"data" row of the mesh (parallel/mesh.py), the last step padded with
+repeats whose results are dropped; each row's block runs through that
+device's copy of the matcher: DetectorFreeMatcher for the LoFTR family, or
+the ASpan and MatchFormer matchers of models.build_matcher, built as JAX
+builds them (threshold, capacity and compute dtype; the fine stage and the
+fused kernels are the LoFTR family's). Every block of a step is launched
+before any is brought back, and a step is launched before the previous
+one is collected. Variable match counts come back as fixed-capacity slots
+with validity masks; the conversion to original pixels, the optional
+rounding to a pixel grid and the scene-level keypoint merge
+(ops/grid_merge.py) run on the host, in pair order.
 """
 
 from __future__ import annotations
@@ -23,10 +25,11 @@ import numpy as np
 import torch
 
 from ..data.images import LoadedImage, load_gray
-from ..device import compute_dtype, resolve_device
+from ..device import compute_dtype
 from ..models import LOFTR_FAMILY, MATCHER_NAMES, build_matcher
 from ..models.loftr import DetectorFreeMatcher, MatcherConfig
 from ..ops.grid_merge import merge_matches_to_keypoints
+from ..parallel.mesh import mesh_of, replicate_module, shard_leading_axis
 from ..utils.profiler import PassThroughProfiler
 
 
@@ -35,7 +38,7 @@ class EngineConfig:
     matcher: str = "loftr"         # a models.build_matcher name
     img_resize: int = 832          # padded square frame (long-side cap)
     df: int = 8                    # divisor for the 1/8 grid
-    batch_size: int = 1            # pairs per forward
+    batch_size: int = 1            # pairs per device per step
     match_threshold: float = 0.2
     max_matches: int = 2048
     round_matches_ratio: Optional[int] = None  # quantize coords to N-px grid
@@ -62,15 +65,20 @@ class EngineConfig:
 
 
 class PairMatchingEngine:
-    """Holds the matcher on its device; maps (name0, name1) pairs to
-    original-pixel match arrays."""
+    """Holds one copy of the matcher per device of the mesh; maps (name0,
+    name1) pairs to original-pixel match arrays.
+
+    `mesh` (parallel/mesh.py) or `device` (a one-entry mesh); neither
+    means the default mesh, every visible card (None: CUDA, which must
+    be present)."""
 
     def __init__(self, cfg: EngineConfig = EngineConfig(), params=None,
-                 device=None, profiler=None):
+                 device=None, profiler=None, mesh=None):
         self.profiler = (profiler if profiler is not None
                          else PassThroughProfiler())
         self.cfg = cfg
-        self.device = resolve_device(device)
+        self.mesh = mesh_of(device, mesh)
+        self.device = self.mesh.first
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(0)  # random init only; weights overwrite it
             if cfg.matcher in LOFTR_FAMILY:
@@ -91,7 +99,10 @@ class PairMatchingEngine:
                   file=sys.stderr)
         else:
             self.model.load_state_dict(params)
-        self.model.to(self.device).eval()
+        # The parameters replicated: one model per "data" row, one copy
+        # per distinct device (self.model is the first device's).
+        self.models = replicate_module(self.model.to(self.device).eval(),
+                                       self.mesh)
 
     # -- host-side data staging ---------------------------------------------
 
@@ -118,14 +129,13 @@ class PairMatchingEngine:
         """Run all pairs; returns {(n0, n1): {kpts0, kpts1, conf}} in
         original pixel coordinates with invalid slots dropped."""
         cfg = self.cfg
-        step = cfg.batch_size
+        n_dev = len(self.models)
+        step = cfg.batch_size * n_dev
         out: Dict[Tuple[str, str], dict] = {}
 
-        def to_dev(a):
-            return torch.from_numpy(a).to(self.device, non_blocking=True)
-
         def dispatch(start):
-            """Stage and launch one batch (asynchronous on the GPU)."""
+            """Stage one step and launch each device's block (asynchronous
+            on the GPU)."""
             chunk = list(pairs[start:start + step])
             n = len(chunk)
             while len(chunk) < step:  # pad with repeats; results discarded
@@ -136,12 +146,14 @@ class PairMatchingEngine:
                             for a, _ in chunk], np.int64)
             hw1 = np.array([(images[b].valid_size[1], images[b].valid_size[0])
                             for _, b in chunk], np.int64)
-            res = self.model(to_dev(img0), to_dev(img1), to_dev(hw0),
-                             to_dev(hw1))
+            blocks = shard_leading_axis((img0, img1, hw0, hw1), self.mesh)
+            res = [model(*blk) for model, blk in zip(self.models, blocks)]
             return chunk, n, res
 
         def collect(chunk, n, res):
-            c0, c1, conf, valid = (t.cpu().numpy() for t in res)
+            c0, c1, conf, valid = (
+                np.concatenate([r[k].cpu().numpy() for r in res])
+                for k in range(4))
             for i, (a, b) in enumerate(chunk[:n]):
                 v = valid[i]
                 k0 = c0[i][v] * images[a].scale[None, :]
@@ -156,8 +168,8 @@ class PairMatchingEngine:
                     "conf": conf[i][v].astype(np.float32),
                 }
 
-        # One-deep software pipeline: launch batch i+1 before bringing back
-        # batch i's results, so host staging overlaps device compute.
+        # One-deep software pipeline: launch step i+1 before bringing back
+        # step i's results, so host staging overlaps device compute.
         pending = None
         with self.profiler.record_function("engine/match_forward"):
             for start in range(0, len(pairs), step):

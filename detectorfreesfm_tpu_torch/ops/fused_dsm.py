@@ -18,9 +18,10 @@ form that product once and reduce it along both axes:
              -> row max/argmax of 2z - lse_c, column max/argmax of 2z - lse_r
 
 Each wrapper runs its plain torch version for CPU tensors, launches its
-kernel (a sweep and the row and column combines) for CUDA tensors or
-raises, and counts its launches in `launches`. There is no fallback from
-the kernel to the plain version.
+kernel (a sweep and the row and column combines) for CUDA tensors, on
+their card whichever card is current, or raises, and counts its launches
+in `launches` (and by device in `launches_by_device`). There is no
+fallback from the kernel to the plain version.
 """
 
 from __future__ import annotations
@@ -36,8 +37,10 @@ NEG = -1e9
 SOURCE = "dual_softmax.cu"
 KERNEL_C = 256  # the channel count the kernels are built for (`KC`)
 
-# Kernel launches since the last reset, by kernel name.
+# Kernel launches since the last reset, by kernel name, and by device
+# ("cuda:0": {name: count}).
 launches = {"dsm_pass1": 0, "dsm_pass2": 0}
+launches_by_device = {}
 
 
 def fast_exp(x):
@@ -130,10 +133,13 @@ def _check(name, hi0, lo0, hi1, lo1, m0, m1, *lse):
         raise ValueError(f"{name}: shape {tuple(hi0.shape)} is out of range")
 
 
-def _launch(name, rc):
+def _launch(name, rc, dev):
     if rc != 0:
-        raise RuntimeError(f"{name}: CUDA launch failed with error {rc}")
+        raise RuntimeError(f"{name}: CUDA launch failed with error {rc} on "
+                           f"{dev}")
     launches[name] += 1
+    per = launches_by_device.setdefault(str(dev), dict.fromkeys(launches, 0))
+    per[name] += 1
 
 
 @functools.lru_cache(maxsize=None)
@@ -182,12 +188,15 @@ def dsm_pass1(hi0, lo0, hi1, lo1, m0, m1, fast: bool = False):
     nb = hi1.shape[1]
     lse_r = torch.empty((bsz, na), dtype=torch.float32, device=hi0.device)
     lse_c = torch.empty((bsz, nb), dtype=torch.float32, device=hi0.device)
-    splits, rows, cols = _partials(lib, hi0, hi1)
-    stream = torch.cuda.current_stream(hi0.device).cuda_stream
-    rc = lib.dsm_pass1(*_ptrs(hi0, lo0, hi1, lo1, m0, m1, lse_r, lse_c, rows,
-                              cols),
-                       bsz, na, nb, c, splits, int(fast), stream)
-    _launch("dsm_pass1", rc)
+    # The library acts on the current card (SM count, shared-memory
+    # limit, launch): make it the inputs' one.
+    with torch.cuda.device(hi0.device):
+        splits, rows, cols = _partials(lib, hi0, hi1)
+        stream = torch.cuda.current_stream(hi0.device).cuda_stream
+        rc = lib.dsm_pass1(*_ptrs(hi0, lo0, hi1, lo1, m0, m1, lse_r, lse_c,
+                                  rows, cols),
+                           bsz, na, nb, c, splits, int(fast), stream)
+    _launch("dsm_pass1", rc, hi0.device)
     return lse_r, lse_c
 
 
@@ -205,13 +214,14 @@ def dsm_pass2(hi0, lo0, hi1, lo1, m0, m1, lse_r, lse_c):
     row_arg = torch.empty((bsz, na), dtype=torch.int32, device=dev)
     col_max = torch.empty((bsz, nb), dtype=torch.float32, device=dev)
     col_arg = torch.empty((bsz, nb), dtype=torch.int32, device=dev)
-    splits, rows, cols = _partials(lib, hi0, hi1)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = lib.dsm_pass2(*_ptrs(hi0, lo0, hi1, lo1, m0, m1, lse_r, lse_c,
-                              row_max, row_arg, col_max, col_arg, rows,
-                              cols),
-                       bsz, na, nb, c, splits, stream)
-    _launch("dsm_pass2", rc)
+    with torch.cuda.device(dev):  # see dsm_pass1
+        splits, rows, cols = _partials(lib, hi0, hi1)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.dsm_pass2(*_ptrs(hi0, lo0, hi1, lo1, m0, m1, lse_r, lse_c,
+                                  row_max, row_arg, col_max, col_arg, rows,
+                                  cols),
+                           bsz, na, nb, c, splits, stream)
+    _launch("dsm_pass2", rc, dev)
     return row_max, row_arg, col_max, col_arg
 
 

@@ -1,3 +1,11 @@
-"""Host-level work distribution: chunkers, the scene queue and progress
-(parallel/orchestrate.py). The JAX package's device mesh (parallel/mesh.py)
-has no counterpart yet: the port runs on one card (ROADMAP item 19)."""
+"""Several devices: the device mesh and its sharding helpers
+(parallel/mesh.py), and host-level work distribution over processes
+(parallel/orchestrate.py)."""
+
+from .mesh import (  # noqa: F401
+    get_mesh,
+    make_mesh,
+    pad_to_multiple,
+    replicate,
+    shard_leading_axis,
+)

@@ -2,7 +2,9 @@
 
 Port of the JAX package's parallel/orchestrate.py. Scenes are distributed
 over processes (one per card) and each process reconstructs its strided
-share. The process index and count come from an initialised
+share; data-parallel training sums its gradients over the processes and
+starts them from process 0's weights (`all_reduce_sum`,
+`broadcast_from_first`), where JAX's global mesh does both. The process index and count come from an initialised
 torch.distributed group, as the training verbs' scene sharding does, and
 are (0, 1) otherwise; tests pass them explicitly. Deterministic by
 construction (no shuffled chunk indices).
@@ -59,6 +61,43 @@ def process_rank_count() -> Tuple[int, int]:
     if dist.is_available() and dist.is_initialized():
         return dist.get_rank(), dist.get_world_size()
     return 0, 1
+
+
+def _flat_collective(tensors, op):
+    """Run op(flat) on the tensors' flattened concatenation, then copy the
+    result back into them (in place); a no-op without a group."""
+    if process_rank_count()[1] == 1 or not tensors:
+        return tensors
+    import torch
+
+    flat = torch.cat([t.reshape(-1) for t in tensors])
+    op(flat)
+    off = 0
+    for t in tensors:
+        t.copy_(flat[off:off + t.numel()].view_as(t))
+        off += t.numel()
+    return tensors
+
+
+def all_reduce_sum(tensors):
+    """Sum each tensor (one dtype, one device) over the processes of an
+    initialised torch.distributed group, in place, with one all_reduce;
+    a no-op without a group. The group's backend decides where it may run:
+    NCCL needs CUDA tensors, gloo takes CPU and CUDA ones. Every process
+    gets the same sums."""
+    import torch.distributed as dist
+
+    return _flat_collective(
+        tensors, lambda flat: dist.all_reduce(flat, op=dist.ReduceOp.SUM))
+
+
+def broadcast_from_first(tensors):
+    """Overwrite each tensor, in place, with process 0's (one broadcast
+    over an initialised group; a no-op without one): how data-parallel
+    training starts every process from the same weights."""
+    import torch.distributed as dist
+
+    return _flat_collective(tensors, lambda flat: dist.broadcast(flat, 0))
 
 
 def local_shard(items: Sequence[T], process_index: Optional[int] = None,

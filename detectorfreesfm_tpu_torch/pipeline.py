@@ -1,6 +1,6 @@
 """Scene reconstruction pipeline: match -> SfM -> refine -> evaluate.
 
-Port of the JAX package's pipeline.py, on one device. Stage artifacts are
+Port of the JAX package's pipeline.py. Stage artifacts are
 persisted under the output dir and stages are skipped when their outputs
 exist (redo_* flags force re-runs), so scenes are resumable:
 
@@ -24,8 +24,12 @@ Two modes:
     fixed and only structure is estimated (verified matches, tracks, DLT,
     structure-only BA) and refined.
 
-Every entry point takes `device=` (None means CUDA, and raises without it;
-tests pass "cpu").
+Every entry point takes `device=` (a one-entry mesh of it; tests pass
+"cpu") or `mesh=` (parallel/mesh.py); neither means the default mesh,
+every visible card (CUDA must be present). As in JAX, matching and
+refinement shard over the mesh, and the mapper runs on its first device
+(its global BA shards over the default mesh when that holds several
+cards, sfm/mapper.py).
 """
 
 from __future__ import annotations
@@ -42,11 +46,11 @@ import numpy as np
 from .data import colmap_io
 from .data.h5io import load_h5, save_h5, stored_path
 from .data.images import image_size, load_gray
-from .device import resolve_device
 from .eval.pose_auc import DEFAULT_THRESHOLDS
 from .match.engine import EngineConfig, PairMatchingEngine
 from .match.pairs import exhaustive_pairs, sequential_pairs
 from .models import LOFTR_FAMILY
+from .parallel.mesh import mesh_of
 from .refine.loop import RefineConfig, refine_reconstruction
 from .sfm.mapper import IncrementalMapper, MapperConfig
 from .sfm.reconstruction import Reconstruction
@@ -157,7 +161,7 @@ def matches_stored(out_dir: str) -> bool:
 
 def _match_stage(
     cfg: PipelineConfig, image_dir: str, names: List[str], out_dir: str,
-    engine: Optional[PairMatchingEngine] = None, device=None,
+    engine: Optional[PairMatchingEngine] = None, where=None,
 ):
     kp_path, mt_path = match_stores(out_dir)
     if not cfg.redo_matching and matches_stored(out_dir):
@@ -170,7 +174,7 @@ def _match_stage(
         return dict(kps), matches
 
     if engine is None:
-        engine = PairMatchingEngine(cfg.engine_config(), device=device)
+        engine = PairMatchingEngine(cfg.engine_config(), **(where or {}))
     pairs = (
         exhaustive_pairs(names) if cfg.pair_mode == "exhaustive"
         else sequential_pairs(names, cfg.sequential_window)
@@ -198,8 +202,9 @@ def reconstruct_scene(
     verbose: bool = False,
     device=None,
     info: Optional[dict] = None,
+    mesh=None,
 ) -> Optional[Reconstruction]:
-    """Full pipeline for one scene on `device`. Returns the refined
+    """Full pipeline for one scene on `mesh` or `device` (see above). Returns the refined
     Reconstruction (and writes colmap_coarse/ + colmap_refined/ under
     output_dir). `poses` ({image name: (qvec, tvec)}, world-to-camera)
     feeds the triangulation mode, which requires it; a stored
@@ -210,7 +215,11 @@ def reconstruct_scene(
     exception's repr, or None) and `refine_device_error` (whether it was a
     fault of the card). A run that reuses a stored colmap_refined/ counts
     the model_refined_{i}/ it finds and knows no error."""
-    dev = resolve_device(device)
+    # The engine and refinement get the caller's device or mesh; the
+    # mapper runs on the mesh's first device.
+    where = {"device": device} if mesh is None else {"mesh": mesh}
+    mesh = mesh_of(device, mesh)
+    dev = mesh.first
     coarse_dir = os.path.join(output_dir, "colmap_coarse")
     coarse_stored = (not cfg.redo_sfm and os.path.isdir(coarse_dir)
                      and bool(os.listdir(coarse_dir)))
@@ -240,17 +249,17 @@ def reconstruct_scene(
 
     engine = None
     if matcher_params is not None:
-        # Engine reuse across scenes (same params, config and device); one
-        # live engine, since its weights sit on the device.
-        key = (id(matcher_params), cfg.engine_config(), str(dev))
+        # Engine reuse across scenes (same params, config and mesh); one
+        # live engine, since its weights sit on the devices.
+        key = (id(matcher_params), cfg.engine_config(), mesh.key())
         engine = _ENGINE_CACHE.get(key)
         if engine is None:
             engine = PairMatchingEngine(
-                cfg.engine_config(), params=matcher_params, device=dev)
+                cfg.engine_config(), params=matcher_params, **where)
             _ENGINE_CACHE.clear()
             _ENGINE_CACHE[key] = engine
     keypoints, match_indices = _match_stage(
-        cfg, image_dir, names, output_dir, engine, dev)
+        cfg, image_dir, names, output_dir, engine, where)
     mark("match")
     # COLMAP SQLite artifact for external tooling
     db_path = os.path.join(output_dir, "database.db")
@@ -349,7 +358,7 @@ def reconstruct_scene(
         loop_info: dict = {}
         refine_reconstruction(
             rec, images_by_id, params=refiner_params, cfg=rcfg,
-            mapper=mapper, verbose=verbose, device=dev, info=loop_info)
+            mapper=mapper, verbose=verbose, info=loop_info, **where)
         info.update(
             refine_iterations_completed=loop_info["iterations_completed"],
             refine_error=loop_info["error"],

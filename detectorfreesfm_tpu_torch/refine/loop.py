@@ -1,13 +1,16 @@
 """Iterative refinement driver: multiview matching + geometry refinement.
 
-Port of the JAX package's refine/loop.py, on one device. Per iteration:
+Port of the JAX package's refine/loop.py. Per iteration:
 
   1. pack all tracks into one flat table (refine/bags.py::pack_track_table)
      and refine every query node's 2D location with the MultiviewRefiner
      (window shrinks per iteration, 15 -> 11 -> 7), in chunks of
-     `chunk_tracks` rows, with a 1-deep dispatch/collect overlap (as
-     match/engine.py): the host writes chunk i back while the device runs
-     chunk i+1;
+     pad_to_multiple(max(chunk_tracks, n), n) rows for the n "data" rows
+     of the mesh (parallel/mesh.py), each chunk split into n contiguous
+     blocks, one per device, with the scene's image stack and the refiner
+     replicated once per distinct device; a 1-deep dispatch/collect
+     overlap (as match/engine.py): the host writes chunk i back, in row
+     order, while the devices run chunk i+1;
   2. write refined keypoints back into the reconstruction;
   3. geometry refinement: retriangulation, track merge and completion,
      global BA with the farthest registered pair as gauge (with
@@ -53,8 +56,10 @@ import torch
 
 from ..core.geometry import np_quat_to_rotmat
 from ..core.precision import geometry_precision
-from ..device import bf16_reduced_in_fp32, is_device_error, resolve_device
+from ..device import bf16_reduced_in_fp32, is_device_error
 from ..models.multiview_matcher import MultiviewRefiner, RefinerConfig
+from ..parallel.mesh import (mesh_of, pad_to_multiple, replicate,
+                             replicate_module, shard_leading_axis)
 from ..sfm.mapper import IncrementalMapper, MapperConfig
 from ..sfm.reconstruction import Reconstruction
 from ..utils.profiler import PassThroughProfiler
@@ -120,14 +125,16 @@ def refine_reconstruction(
     verbose: bool = False,
     device=None,
     info: Optional[dict] = None,
+    mesh=None,
 ) -> Reconstruction:
-    """Refine a reconstruction in place (also returned), on `device`
-    (None: CUDA, and raises without it).
+    """Refine a reconstruction in place (also returned), on `mesh` or on
+    a one-entry mesh of `device` (neither: the default mesh, which needs
+    CUDA); geometry refinement runs on the mesh's first device.
 
     params is the refiner's state_dict (utils.checkpoint.
     load_refiner_params); None needs cfg.allow_random_weights, and then
     the refiner is initialised from `seed`. All images are padded to the
-    largest (H, W) and staged on the device once."""
+    largest (H, W) and staged once on each device of the mesh."""
     if params is None and not cfg.allow_random_weights:
         raise ValueError(
             "refine_reconstruction called without refiner weights: pass "
@@ -135,7 +142,7 @@ def refine_reconstruction(
             "load_refiner_params('weights/demo_refiner_r4_bf16.msgpack')), "
             "or opt in to random weights with "
             "RefineConfig(allow_random_weights=True).")
-    dev = resolve_device(device)
+    mesh = mesh_of(device, mesh)
     info = {} if info is None else info
     info.update(iterations_completed=0, error=None, device_error=False,
                 iterations=[])
@@ -147,7 +154,7 @@ def refine_reconstruction(
     for gi, img_id in enumerate(image_order):
         a = images_by_id[img_id]
         img_stack[gi, : a.shape[0], : a.shape[1], 0] = a
-    images_dev = torch.from_numpy(img_stack).to(dev)
+    images_dev = replicate(torch.from_numpy(img_stack), mesh)
 
     for it in range(cfg.n_iters):
         # Failure isolation (reference post_optimization.py:195-197: a
@@ -164,7 +171,7 @@ def refine_reconstruction(
         try:
             info["iterations"].append(_refine_iteration(
                 rec, images_dev, image_order, params, cfg, mapper, seed,
-                verbose, it, dev))
+                verbose, it, mesh))
             if cfg.save_iters_to:
                 d = os.path.join(cfg.save_iters_to, f"model_refined_{it}")
                 os.makedirs(d, exist_ok=True)
@@ -200,12 +207,14 @@ def _build_refiner(rcfg: RefinerConfig, params, seed: int, dev):
 
 
 def _refine_iteration(rec, images_dev, image_order, params, cfg, mapper,
-                      seed, verbose, it, dev) -> dict:
+                      seed, verbose, it, mesh) -> dict:
     profiler = PassThroughProfiler()
     window = cfg.windows[min(it, len(cfg.windows) - 1)]
     rcfg = RefinerConfig(crop_size=window + cfg.crop_extra, window=window,
                          compute_dtype=cfg.compute_dtype)
-    model = _build_refiner(rcfg, params, seed, dev)
+    dev = mesh.first
+    # The refiner replicated: one copy per distinct device.
+    models = replicate_module(_build_refiner(rcfg, params, seed, dev), mesh)
 
     t0 = time.perf_counter()
     with profiler.record_function("refine/pack_tracks"):
@@ -219,46 +228,49 @@ def _refine_iteration(rec, images_dev, image_order, params, cfg, mapper,
                        np.int64)
     node_img_g = remap[table.node_img]
     T_total = len(table.point_ids)
-    chunk = cfg.chunk_tracks
+    n_dev = len(models)
+    chunk = pad_to_multiple(max(cfg.chunk_tracks, n_dev), n_dev)
     if verbose:
         print(f"refine iter {it}: {T_total} tracks, window {window}, "
-              f"chunks of {chunk}")
+              f"chunks of {chunk} over {n_dev} devices")
     cuda = dev.type == "cuda"
     forward_ms, shifts = [], []
 
-    def to_dev(a):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(
-            dev, non_blocking=True)
-
     def dispatch(start):
-        """Stage and launch one track chunk (asynchronous on the card)."""
+        """Stage one track chunk and launch each device's block
+        (asynchronous on the cards)."""
         end = min(start + chunk, T_total)
-        batch = (to_dev(_pad_tracks(node_img_g[start:end], chunk)),
-                 to_dev(_pad_tracks(table.node_xy[start:end], chunk)),
-                 to_dev(_pad_tracks(table.node_scale[start:end], chunk, 1.0)),
-                 to_dev(_pad_tracks(table.node_mask[start:end], chunk)))
-        if cuda:
-            ev = (torch.cuda.Event(enable_timing=True),
-                  torch.cuda.Event(enable_timing=True))
-            ev[0].record()
-        else:
-            ev = time.perf_counter()
-        # Full fp32 products and bf16 GEMMs reduced in fp32, whichever
-        # the refiner's dtype; cuDNN's heuristic algorithms (see above).
-        with geometry_precision(), bf16_reduced_in_fp32(), \
-                torch.backends.cudnn.flags(
-                    enabled=True, benchmark=False, deterministic=False,
-                    allow_tf32=False), torch.no_grad():
-            out = model(images_dev, *batch)
-        if cuda:
-            ev[1].record()
-        else:
-            ev = (time.perf_counter() - ev) * 1e3
-        return start, end - start, out, ev
+        blocks = shard_leading_axis(
+            (_pad_tracks(node_img_g[start:end], chunk),
+             _pad_tracks(table.node_xy[start:end], chunk),
+             _pad_tracks(table.node_scale[start:end], chunk, 1.0),
+             _pad_tracks(table.node_mask[start:end], chunk)), mesh)
+        evs, outs = [], []
+        t0 = time.perf_counter()
+        for model, images, batch in zip(models, images_dev, blocks):
+            if cuda:
+                ev = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+                ev[0].record(torch.cuda.current_stream(images.device))
+            # Full fp32 products and bf16 GEMMs reduced in fp32, whichever
+            # the refiner's dtype; cuDNN's heuristic algorithms (see above).
+            with geometry_precision(), bf16_reduced_in_fp32(), \
+                    torch.backends.cudnn.flags(
+                        enabled=True, benchmark=False, deterministic=False,
+                        allow_tf32=False), torch.no_grad():
+                outs.append(model(images, *batch))
+            if cuda:
+                ev[1].record(torch.cuda.current_stream(images.device))
+                evs.append(ev)
+        if not cuda:
+            evs = (time.perf_counter() - t0) * 1e3
+        return start, end - start, outs, evs
 
-    def collect(start, n, out, ev):
-        coords = out.coords[:n].cpu().numpy()
-        forward_ms.append(ev[0].elapsed_time(ev[1]) if cuda else ev)
+    def collect(start, n, outs, evs):
+        coords = torch.cat([o.coords.cpu() for o in outs])[:n].numpy()
+        # A chunk's device ms: its slowest block's.
+        forward_ms.append(max(a.elapsed_time(b) for a, b in evs) if cuda
+                          else evs)
         mq = table.node_mask[start:start + n, 1:]
         shifts.append(np.linalg.norm(
             coords[:, 1:][mq] - table.node_xy[start:start + n, 1:][mq],

@@ -1,10 +1,19 @@
 """Bundle adjustment: Schur-complement Levenberg-Marquardt.
 
-Port of the JAX package's sfm/ba.py (the single-device path; the
-mesh-sharded one is not ported):
+Port of the JAX package's sfm/ba.py:
 
   * Observations are (O,) arrays with one masked dummy slot; per-point
     track tables feed the dense Schur assembly.
+  * With a mesh (parallel/mesh.py), the observations are also padded to a
+    multiple of its "data" rows (JAX's `o_pad`) and split into contiguous
+    blocks, one per device: each LM step computes the per-observation
+    residuals, Jacobians and Huber weights of a block on its device, with
+    the cameras and points replicated there, and brings them back to the
+    first device, in observation order, where the reductions, the solve
+    and the LM driver run. Those terms are elementwise in the
+    observations, so the sharded solve is bit-equal to the one-device
+    solve (as JAX's is, mapper.py), at the cost of copying
+    O x (2 + 16 + 6 + 1) floats to the first device per step.
   * Per-observation 2x8 camera and 2x3 point Jacobians come from
     `vmap(jacfwd)` of the projection residual, as in JAX.
   * Camera block = 6-dof pose ⊕ log-focal ⊕ radial k1 (8 params); the
@@ -36,6 +45,7 @@ from torch.func import jacfwd, vmap
 from ..core.geometry import np_quat_to_rotmat, np_rotmat_to_quat, so3_exp
 from ..core.precision import geometry_precision
 from ..device import resolve_device
+from ..parallel.mesh import pad_to_multiple, shard_leading_axis
 
 CAM_DOF = 8  # 3 rot + 3 trans + 1 log-focal + 1 radial k1
 # PCG iterations between two host reads of its stopping flag (one sync each)
@@ -59,6 +69,9 @@ class BAProblem(NamedTuple):
     pose_free: torch.Tensor   # (C, 6) float - per-pose-column freedom
     refine_focal: bool
     refine_dist: bool
+    # With a mesh: per "data" row, (obs_uv, obs_cam, obs_pt) padded to a
+    # multiple of the rows and cut into blocks on the rows' devices.
+    shards: tuple = ()
 
 
 def _index_add(out, ids, data):
@@ -79,23 +92,60 @@ def _segment_sum(data, ids, n):
     return _index_add(out, ids, data)
 
 
+# The per-observation terms use no matrix product and no reduction, only
+# elementwise operations in a fixed order: each row's bits are then the
+# same whatever batch it is in. cuBLAS's batched 3x3 products round rows
+# differently with their position and batch size (past 65 535 products
+# in one call, on an H100), which would make a sharded solve differ from
+# the one-device one.
+def _mv3(M, v):
+    """M @ v for a 3x3 M and a 3-vector v."""
+    return M[..., 0] * v[..., 0:1] + M[..., 1] * v[..., 1:2] \
+        + M[..., 2] * v[..., 2:3]
+
+
+def _mm3(A, B):
+    """A @ B for 3x3 matrices."""
+    return A[..., :, 0:1] * B[..., 0:1, :] + A[..., :, 1:2] * B[..., 1:2, :] \
+        + A[..., :, 2:3] * B[..., 2:3, :]
+
+
+def _so3_exp3(w):
+    """core.geometry.so3_exp of one axis-angle (3,), with _mm3 and an
+    explicit sum of squares."""
+    theta2 = (w[0:1] * w[0:1] + w[1:2] * w[1:2] + w[2:3] * w[2:3])[:, None]
+    small = theta2 < 1e-8
+    theta2_safe = torch.where(small, torch.ones_like(theta2), theta2)
+    theta_safe = torch.sqrt(theta2_safe)
+    A = torch.where(small, 1.0 - theta2 / 6.0,
+                    torch.sin(theta_safe) / theta_safe)
+    B = torch.where(small, 0.5 - theta2 / 24.0,
+                    (1.0 - torch.cos(theta_safe)) / theta2_safe)
+    wx, wy, wz = w.unbind(-1)
+    zero = torch.zeros_like(wx)
+    W = torch.stack([zero, -wz, wy, wz, zero, -wx, -wy, wx, zero],
+                    dim=-1).reshape(3, 3)
+    eye = torch.eye(3, dtype=w.dtype, device=w.device)
+    return eye + A * W + B * _mm3(W, W)
+
+
 def _proj(R, t, f_scale, intr, X, dk=0.0):
     """Project one world point with SIMPLE_RADIAL distortion; f_scale
     multiplies (fx, fy) and dk is a local additive update to intr[4].
     Written on 1-element slices, not 0-dim scalars: under jacfwd a python
     float combined with a 0-dim dual tensor promotes the tangent to float64
     (torch 2.x)."""
-    Xc = R @ X + t
+    Xc = _mv3(R, X) + t
     z = Xc[2:3]
     z = torch.where(z.abs() < 1e-9, torch.full_like(z, 1e-9), z)
     xy = Xc[:2] / z
-    d = 1.0 + (intr[4:5] + dk) * torch.sum(xy * xy, dim=-1, keepdim=True)
+    d = 1.0 + (intr[4:5] + dk) * (xy[0:1] * xy[0:1] + xy[1:2] * xy[1:2])
     return intr[0:2] * f_scale * (xy * d) + intr[2:4]
 
 
 def _obs_residual(delta_cam, delta_pt, R0, t0, intr0, X0, uv):
     """Residual as a function of the local update (8,) ⊕ (3,)."""
-    R = so3_exp(delta_cam[:3]) @ R0
+    R = _mm3(_so3_exp3(delta_cam[:3]), R0)
     t = t0 + delta_cam[3:6]
     pred = _proj(R, t, torch.exp(delta_cam[6]), intr0, X0 + delta_pt,
                  dk=delta_cam[7])
@@ -112,24 +162,54 @@ def _huber_weight(r2, delta):
     return torch.where(r <= delta, torch.ones_like(r), torch.sqrt(delta / r))
 
 
+def _obs_terms(cam_R, cam_t, intr, points, obs_uv, obs_cam, obs_pt,
+               huber_delta):
+    """Per-observation residuals r (O, 2), Jacobians A (O, 2, 8) and
+    B (O, 2, 3), and Huber sqrt-weights w (O,) at the given state."""
+    R0 = cam_R[obs_cam]
+    t0 = cam_t[obs_cam]
+    K0 = intr[obs_cam]
+    X0 = points[obs_pt]
+    o = obs_uv.shape[0]
+    zc = torch.zeros(o, CAM_DOF, dtype=X0.dtype, device=X0.device)
+    zp = torch.zeros(o, 3, dtype=X0.dtype, device=X0.device)
+    r = _residuals(zc, zp, R0, t0, K0, X0, obs_uv)
+    A, B = _jacobians_ab(zc, zp, R0, t0, K0, X0, obs_uv)
+    # jacfwd gives A and B as strided views of one (O, 2, 11) block; the
+    # products downstream round otherwise on such views than on the
+    # contiguous blocks that a sharded solve gathers, so both get those.
+    return (r, A.contiguous(), B.contiguous(),
+            _huber_weight(r[:, 0] * r[:, 0] + r[:, 1] * r[:, 1], huber_delta))
+
+
 def _jacobians(prob: BAProblem):
     """Per-observation residuals r (O, 2) and Jacobians A (O, 2, 8),
     B (O, 2, 3) at the current state."""
-    R0 = prob.cam_R[prob.obs_cam]
-    t0 = prob.cam_t[prob.obs_cam]
-    K0 = prob.intr[prob.obs_cam]
-    X0 = prob.points[prob.obs_pt]
-    o = prob.obs_uv.shape[0]
-    zc = torch.zeros(o, CAM_DOF, dtype=X0.dtype, device=X0.device)
-    zp = torch.zeros(o, 3, dtype=X0.dtype, device=X0.device)
-    r = _residuals(zc, zp, R0, t0, K0, X0, prob.obs_uv)
-    A, B = _jacobians_ab(zc, zp, R0, t0, K0, X0, prob.obs_uv)
-    return r, A, B
+    return _terms(prob, 2.0)[:3]
+
+
+def _terms(prob: BAProblem, huber_delta: float):
+    """_obs_terms of every observation slot, on the first device: computed
+    there, or with shards on each block's device and brought back in
+    observation order (the pad rows past the dummy slot dropped)."""
+    state = (prob.cam_R, prob.cam_t, prob.intr, prob.points)
+    if not prob.shards:
+        return _obs_terms(*state, prob.obs_uv, prob.obs_cam, prob.obs_pt,
+                          huber_delta)
+    reps = {}
+    parts = []  # every block launched before any is brought back
+    for obs in prob.shards:
+        dev = obs[0].device
+        if dev not in reps:
+            reps[dev] = [x.to(dev) for x in state]
+        parts.append(_obs_terms(*reps[dev], *obs, huber_delta))
+    first, o = prob.points.device, prob.obs_uv.shape[0]
+    return tuple(torch.cat([p[k].to(first) for p in parts])[:o]
+                 for k in range(4))
 
 
 def _weighted_system(prob: BAProblem, huber_delta: float):
-    r, A, B = _jacobians(prob)
-    w = _huber_weight(torch.sum(r * r, -1), huber_delta)
+    r, A, B, w = _terms(prob, huber_delta)
     w = w * prob.obs_mask.to(w.dtype)
     # Per-camera column mask: pose columns from the gauge mask, the focal
     # column frozen on anchors, the distortion column live on all.
@@ -332,8 +412,11 @@ def bundle_adjust(
     verbose: bool = False,
     device=None,
     info: dict | None = None,
+    mesh=None,               # parallel.mesh.Mesh: shard obs over "data"
 ):
-    """Host LM driver around the Schur step, on `device` (None: CUDA).
+    """Host LM driver around the Schur step, on `device` (None: CUDA), or
+    with `mesh` sharded over its "data" rows and solved on its first
+    device (see the module docstring).
 
     Inputs are live (unpadded) numpy arrays. Returns (qvec, tvec, intr,
     points, final_cost_per_obs) as float64 numpy. If `info` is a dict it
@@ -343,7 +426,9 @@ def bundle_adjust(
     camera A's pose and the one translation component of camera B most
     aligned with the baseline (7 DOF); "full" freezes every fixed camera's
     pose; "auto" is similarity iff exactly two are fixed."""
-    dev = resolve_device(device)
+    if mesh is not None and device is not None:
+        raise ValueError("pass a device or a mesh, not both")
+    dev = mesh.first if mesh is not None else resolve_device(device)
     C, P, O = len(qvec), len(points), len(obs_uv)
     in_cols = intr.shape[1]
     if in_cols == 4:  # pinhole callers: k1 = 0 column appended internally
@@ -416,6 +501,20 @@ def bundle_adjust(
         track_mask=dv(track_mask, torch.bool),
         fixed_cams=dv(fixed, torch.bool), pose_free=dv(pose_free_np),
         refine_focal=bool(refine_focal), refine_dist=bool(refine_dist))
+    n_shard = len(mesh.data_devices) if mesh is not None else 1
+    if n_shard > 1:
+        # JAX's o_pad: the dummy slot, then pad rows up to a multiple of
+        # the rows (their terms are dropped before any reduction).
+        o_pad = pad_to_multiple(O + 1, n_shard)
+
+        def padded(a, v):
+            return np.concatenate(
+                [a, np.full((o_pad - O,) + a.shape[1:], v, a.dtype)])
+
+        prob = prob._replace(shards=tuple(map(tuple, shard_leading_axis(
+            (padded(obs_uv.astype(np.float32), 0.0),
+             padded(obs_cam.astype(np.int64), 0),
+             padded(obs_pt.astype(np.int64), 0)), mesh))))
 
     lam = 1e-3
     cost = float(ba_cost(prob, huber_delta))
@@ -453,7 +552,7 @@ def bundle_adjust(
     if info is not None:
         info.update(iterations=n_iter, accepted=n_accept,
                     cg_iterations=cg_total,
-                    solver="pcg" if use_pcg else "dense")
+                    solver="pcg" if use_pcg else "dense", shards=n_shard)
 
     R_out = prob.cam_R.double().cpu().numpy()
     q_out = np_rotmat_to_quat(R_out)

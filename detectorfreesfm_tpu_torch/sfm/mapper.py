@@ -14,7 +14,10 @@ Differences from the JAX module:
     independent: each has its own key and draws. The point padding
     (`_pad_pow2`) is kept, because the draws' shape (H, n_pad) decides the
     samples.
-  * no mesh: `global_ba` runs bundle adjustment on the mapper's device.
+  * `global_ba(mesh="auto")` shards bundle adjustment over the default
+    mesh when it holds more than one card and starts at the mapper's
+    device (the JAX module's "more than one device visible"); otherwise
+    BA runs on the mapper's device.
   * `times` and `calls` hold each step's wall seconds and call count
     (verify, init, register, triangulate, ba, filter, complete, merge,
     retriangulate). Every step ends by bringing its results to the host,
@@ -30,11 +33,13 @@ import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from ..core.geometry import np_quat_to_rotmat
 from ..core.triangulation import triangulate_dlt
 from ..data import colmap_io
 from ..device import resolve_device
+from ..parallel.mesh import canonical_device, get_mesh
 from ..utils.prng import gumbel, stable_rngs
 from .ba import bundle_adjust
 from .reconstruction import Reconstruction, RImage
@@ -666,9 +671,14 @@ class IncrementalMapper:
 
     @_timed("ba")
     def global_ba(self, rec: Reconstruction, fixed_ids: Optional[set] = None,
-                  gauge: str = "similarity"):
+                  mesh="auto", gauge: str = "similarity"):
         """Global bundle adjustment over the registered model, on the
         mapper's device.
+
+        mesh="auto" shards the observation terms over the default mesh
+        (parallel/mesh.py) when it holds more than one card and its first
+        is the mapper's device (sharded and single-device solves are
+        bit-equal, sfm/ba.py); pass None to force one device, or a mesh.
 
         gauge: "similarity" (default — fixed_ids are the two init anchors,
         7-DOF gauge, anchor B mostly live) or "full" (every fixed camera's
@@ -728,6 +738,13 @@ class IncrementalMapper:
             print(f"global_ba: similarity gauge needs 2 anchors, got "
                   f"{int(fixed.sum())} -> full freeze", file=sys.stderr)
             gauge = "full"
+        if mesh == "auto":
+            mesh = None
+            if torch.cuda.is_available():
+                m = get_mesh()
+                if (len(m.data_devices) > 1
+                        and m.first == canonical_device(self.device)):
+                    mesh = m
         q2, t2, intr2, pts2, _cost = bundle_adjust(
             q, t, intr, pts,
             np.asarray(obs_uv, np.float64),
@@ -738,7 +755,8 @@ class IncrementalMapper:
             refine_dist=refine_dist,
             huber_delta=4.0,
             gauge=gauge,
-            device=self.device,
+            **({"mesh": mesh} if mesh is not None
+               else {"device": self.device}),
         )
         for i, img_id in enumerate(reg):
             rec.set_pose(img_id, q2[i], t2[i])

@@ -1,8 +1,10 @@
 """Coarse(+fine) matcher trainer: focal-loss training of the detector-free
 matcher on depth-warped cell labels.
 
-Port of the JAX package's train/matcher_trainer.py on one device. The
-coarse loss is the focal loss of the dense dual-softmax confidence against
+Port of the JAX package's train/matcher_trainer.py, data-parallel over a
+device mesh and over processes as train/trainer.py (rows padded to the
+mesh's "data" rows with copies of row 0 that `live` masks out, the masked
+batch mean, gradients summed over the group's processes). The coarse loss is the focal loss of the dense dual-softmax confidence against
 `pair_cell_assignment`'s labels (made on the device); with
 `matcher.fine_enabled` the fine head is also teacher-forced at `n_fine` GT
 cells per pair (picked by a multiplicative-hash tiebreak that spreads them
@@ -30,15 +32,17 @@ import dataclasses
 import numpy as np
 import torch
 
-from ..device import resolve_device
 from ..models import LOFTR_FAMILY, build_matcher
 from ..models.loftr import DetectorFreeMatcher, MatcherConfig
+from ..parallel.mesh import mesh_of, pad_to_multiple
+from ..parallel.orchestrate import broadcast_from_first
 from ..utils import checkpoint
 from .losses import coarse_focal_loss, fine_l2_std_loss
 from .matcher_supervision import pair_cell_assignment
 from .optimizers import OptimConfig, build_optimizer
 from .supervision import stable_top_k
-from .trainer import (TrainState, as_device, init_leaves, value_and_grad)
+from .trainer import (TrainState, as_device, data_parallel_value_and_grad,
+                      init_leaves, live_rows, pad_rows)
 
 @dataclasses.dataclass(frozen=True)
 class MatcherTrainConfig:
@@ -62,13 +66,16 @@ def fine_cells(gt, n_fine: int):
 
 
 class MatcherTrainer:
-    """The matcher, its optimizer, the step and checkpoint IO, on `device`
-    (None: CUDA). `history` holds each step's loss and gradient norm."""
+    """The matcher, its optimizer, the step and checkpoint IO, on `mesh`
+    or a one-entry mesh of `device` (neither: the default mesh, which
+    needs CUDA); the state lives on the mesh's first device. `history`
+    holds each step's loss and gradient norm."""
 
     def __init__(self, cfg: MatcherTrainConfig = MatcherTrainConfig(),
-                 device=None):
+                 device=None, mesh=None):
         self.cfg = cfg
-        self.device = resolve_device(device)
+        self.mesh = mesh_of(device, mesh)
+        self.device = self.mesh.first
         mc = cfg.matcher
         if cfg.arch in LOFTR_FAMILY:
             self.model = DetectorFreeMatcher(mc)
@@ -89,6 +96,7 @@ class MatcherTrainer:
     def init_state(self, sample_batch=None) -> TrainState:
         params = init_leaves(self.model, self.cfg.seed, self.device,
                              self.exclude)
+        broadcast_from_first(list(params.values()))
         return TrainState(params, build_optimizer(self.cfg.optim, params), 0)
 
     def loss_one(self, apply, image0, image1, gt, uv1):
@@ -124,16 +132,25 @@ class MatcherTrainer:
             [u for _, u in out])
 
     def loss_and_grads(self, params, batch):
+        """The batch's masked mean loss and its gradient over the mesh and
+        the group (train/trainer.py::data_parallel_value_and_grad)."""
+        n = len(batch["image0"])
+        n_pad = pad_to_multiple(n, len(self.mesh.data_devices))
+        batch = pad_rows(batch, n_pad)
         gt, uv1 = self.supervise(batch)
-        im0 = as_device(batch["image0"], self.device, torch.float32)
-        im1 = as_device(batch["image1"], self.device, torch.float32)
+        rows = {"im0": as_device(batch["image0"], self.device, torch.float32),
+                "im1": as_device(batch["image1"], self.device, torch.float32),
+                "gt": gt, "uv1": uv1,
+                "live": as_device(live_rows(n, n_pad), self.device)}
 
-        def loss_fn(apply):
-            return torch.stack([
-                self.loss_one(apply, im0[i], im1[i], gt[i], uv1[i])
-                for i in range(len(gt))]).mean()
+        def block_loss(apply, b):
+            losses = [self.loss_one(apply, b["im0"][i], b["im1"][i],
+                                    b["gt"][i], b["uv1"][i])
+                      for i in range(len(b["live"]))]
+            return torch.sum(torch.stack(losses) * b["live"])
 
-        return value_and_grad(self.model, params, loss_fn)
+        return data_parallel_value_and_grad(self.model, params, self.mesh,
+                                            rows, block_loss)
 
     def train_step(self, state: TrainState, batch):
         loss, grads = self.loss_and_grads(state.params, batch)
@@ -153,8 +170,8 @@ class MatcherTrainer:
         warning, and leaves the template lacks are dropped. ASpan and
         MatchFormer checkpoints load strictly (load_arch_params)."""
         if self.cfg.arch not in LOFTR_FAMILY:
-            return {k: v.to(self.device) for k, v in
-                    checkpoint.load_arch_params(path, self.cfg.arch).items()}
+            return self._everywhere(checkpoint.load_arch_params(
+                path, self.cfg.arch))
         src = checkpoint.read_variables(path)
         missing = []
 
@@ -178,8 +195,14 @@ class MatcherTrainer:
             print(f"warm-start: {len(missing)} fresh subtrees kept "
                   f"(not in ckpt): {missing[:4]}"
                   f"{'...' if len(missing) > 4 else ''}")
-        return {k: v.to(self.device) for k, v in
-                checkpoint.flax_variables_to_state_dict(merged).items()}
+        return self._everywhere(
+            checkpoint.flax_variables_to_state_dict(merged))
+
+    def _everywhere(self, state):
+        """The leaves on the device, process 0's in every process."""
+        params = {k: v.to(self.device) for k, v in state.items()}
+        broadcast_from_first(list(params.values()))
+        return params
 
 
 def tuple_to_pair_batch(tuples: list) -> dict:

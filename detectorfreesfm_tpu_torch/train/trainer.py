@@ -1,11 +1,21 @@
-"""Multiview-refiner trainer.
+"""Multiview-refiner trainer, data-parallel over a device mesh and over
+processes.
 
-Port of the JAX package's train/trainer.py on one device: depth-warp
-labels (supervision.generate_tracks) made on the device for each tuple,
-the L2-with-std loss on the query views, the gradient with respect to the
-whole variables tree, and the optax chain of train/optimizers.py. JAX's
-mesh, its padding of the batch to a device multiple and its `live` rows
-have no counterpart; the batch mean is the mean over the tuples.
+Port of the JAX package's train/trainer.py: depth-warp labels
+(supervision.generate_tracks) made for each tuple from the step key split
+over the padded batch, the L2-with-std loss on the query views, the
+gradient with respect to the whole variables tree, and the optax chain of
+train/optimizers.py. As in JAX, the batch is padded to a multiple of the
+mesh's "data" rows (parallel/mesh.py) with copies of row 0 that `live`
+masks out, and the loss is sum(losses * live) / max(sum(live), 1):
+`data_parallel_value_and_grad` runs each row block on its device with
+that device's copy of the parameters, adds the blocks' loss sums and
+gradients on the first device in block order, and, under an initialised
+torch.distributed group, sums them over the processes before dividing
+(one all_reduce, parallel/orchestrate.py), so every process applies the
+same update, clipped by the global norm. `init_state` and `load_params`
+start every process from process 0's weights. The group is the caller's,
+as JAX's verbs read `jax.process_count()`: nothing here initialises one.
 
 The trainer's state is a `TrainState(params, opt_state, step)` as in JAX:
 `params` is the port's state_dict (fp32 tensors on the device, the names
@@ -32,12 +42,15 @@ import numpy as np
 import torch
 from torch.func import functional_call
 
-from ..device import resolve_device, set_fp32_backends
+from ..device import set_fp32_backends
 from ..models.multiview_matcher import MultiviewRefiner, RefinerConfig
+from ..parallel.mesh import (mesh_of, pad_to_multiple, replicate,
+                             shard_leading_axis)
+from ..parallel.orchestrate import all_reduce_sum, broadcast_from_first
 from ..utils import checkpoint, prng
 from .losses import fine_l2_std_loss
 from .optimizers import OptimConfig, Optimizer, build_optimizer
-from .supervision import generate_tracks
+from .supervision import SupervisionBatch, generate_tracks
 
 
 @dataclasses.dataclass(frozen=True)
@@ -94,6 +107,52 @@ def as_device(a, dev, dtype=None):
     return torch.as_tensor(np.asarray(a), device=dev, dtype=dtype)
 
 
+def pad_rows(batch: dict, n_pad: int) -> dict:
+    """Each array of the batch padded to n_pad rows with copies of row 0
+    (JAX's padding; `live` masks them)."""
+    def pad(a):
+        a = np.asarray(a)
+        if len(a) == n_pad:
+            return a
+        return np.concatenate([a, np.repeat(a[:1], n_pad - len(a), 0)])
+    return {k: pad(v) for k, v in batch.items()}
+
+
+def live_rows(n: int, n_pad: int) -> np.ndarray:
+    return (np.arange(n_pad) < n).astype(np.float32)
+
+
+def data_parallel_value_and_grad(model, params, mesh, rows, block_loss):
+    """JAX's masked batch mean and its gradient, data-parallel.
+
+    rows: a tree of (n_pad, ...) per-row inputs whose "live" leaf is the
+    float 0/1 mask, n_pad a multiple of the mesh's "data" rows.
+    block_loss(apply, block) -> the sum of live * loss over one block of
+    rows (on its device). Block i runs on row i's device with that
+    device's copy of `params`; the loss sums and gradients are added on
+    the first device in block order, then summed over the processes of an
+    initialised torch.distributed group, with the live count, and divided
+    by max(live count, 1). Returns (loss, {name: grad}) on the first
+    device."""
+    first = mesh.first
+    sums = []  # every block launched before any is added up
+    for p, block in zip(replicate(params, mesh),
+                        shard_leading_axis(rows, mesh)):
+        sums.append(value_and_grad(model, p,
+                                   lambda apply: block_loss(apply, block)))
+    loss = sums[0][0].to(first).clone()
+    grads = {k: g.to(first).clone() for k, g in sums[0][1].items()}
+    for l_i, g_i in sums[1:]:
+        loss += l_i.to(first)
+        for k, g in g_i.items():
+            grads[k] += g.to(first)
+    count = rows["live"].sum().to(first, torch.float32).reshape(1)
+    names = list(grads)
+    all_reduce_sum([loss.reshape(1), count] + [grads[k] for k in names])
+    denom = torch.clamp_min(count, 1.0)
+    return loss / denom[0], {k: grads[k] / denom[0] for k in names}
+
+
 class StepLog:
     """Per-step JSON lines to a path (or nowhere): the step's loss, global
     gradient norm (before clipping) and seconds since `t_start` (the
@@ -116,19 +175,24 @@ class StepLog:
 
 
 class Trainer:
-    """The refiner, its optimizer, the step and checkpoint IO, on `device`
-    (None: CUDA; the CPU only when asked). `history` holds each step's
-    loss and global gradient norm (before clipping)."""
+    """The refiner, its optimizer, the step and checkpoint IO, on `mesh`
+    or a one-entry mesh of `device` (neither: the default mesh, which
+    needs CUDA; the CPU only when asked). The state lives on the mesh's
+    first device. `history` holds each step's loss and global gradient
+    norm (before clipping)."""
 
-    def __init__(self, cfg: TrainConfig = TrainConfig(), device=None):
+    def __init__(self, cfg: TrainConfig = TrainConfig(), device=None,
+                 mesh=None):
         set_fp32_backends()
         self.cfg = cfg
-        self.device = resolve_device(device)
+        self.mesh = mesh_of(device, mesh)
+        self.device = self.mesh.first
         self.model = MultiviewRefiner(cfg.refiner)
         self.history = []
 
     def init_state(self, sample_batch=None) -> TrainState:
         params = init_leaves(self.model, self.cfg.seed, self.device)
+        broadcast_from_first(list(params.values()))
         return TrainState(params, build_optimizer(self.cfg.optim, params), 0)
 
     def loss_one(self, apply, images, spv):
@@ -141,7 +205,8 @@ class Trainer:
                                 out.std[:, 1:], mask)
 
     def supervise(self, batch, rng):
-        """Depth-warp labels of each tuple from split(rng, B)."""
+        """Depth-warp labels of each tuple from split(rng, B), on the
+        first device."""
         cfg = self.cfg
         dev = self.device
         rngs = prng.split(rng, batch["depths"].shape[0])
@@ -153,15 +218,28 @@ class Trainer:
             for i in range(len(rngs))]
 
     def loss_and_grads(self, params, batch, rng):
+        """The batch's masked mean loss and its gradient over the mesh
+        (and the group): the batch is padded to the mesh's "data" rows and
+        the key split over the padded rows, as JAX splits it."""
+        n = len(batch["images"])
+        n_pad = pad_to_multiple(n, len(self.mesh.data_devices))
+        batch = pad_rows(batch, n_pad)
         spvs = self.supervise(batch, rng)
-        images = as_device(batch["images"], self.device, torch.float32)
+        rows = {"images": as_device(batch["images"], self.device,
+                                    torch.float32),
+                "spv": SupervisionBatch(*(torch.stack(f)
+                                          for f in zip(*spvs))),
+                "live": as_device(live_rows(n, n_pad), self.device)}
 
-        def loss_fn(apply):
-            losses = [self.loss_one(apply, images[i], s)
-                      for i, s in enumerate(spvs)]
-            return torch.stack(losses).mean()
+        def block_loss(apply, block):
+            spv = block["spv"]
+            losses = [self.loss_one(apply, block["images"][i],
+                                    SupervisionBatch(*(f[i] for f in spv)))
+                      for i in range(len(block["live"]))]
+            return torch.sum(torch.stack(losses) * block["live"])
 
-        return value_and_grad(self.model, params, loss_fn)
+        return data_parallel_value_and_grad(self.model, params, self.mesh,
+                                            rows, block_loss)
 
     def train_step(self, state: TrainState, batch, rng):
         """One step on a batch of tuples; rng is a raw uint32[2] key.
@@ -182,7 +260,9 @@ class Trainer:
         state = checkpoint.flax_variables_to_state_dict(
             checkpoint.read_variables(path))
         checkpoint.match_state_dict(state, template_params)
-        return {k: v.to(self.device) for k, v in state.items()}
+        params = {k: v.to(self.device) for k, v in state.items()}
+        broadcast_from_first(list(params.values()))
+        return params
 
 
 def epipolar_pose_eval(coords, gt, mask) -> dict:

@@ -424,6 +424,7 @@ def test_refine_config_compute_dtype_reaches_refiner(monkeypatch):
     """RefineConfig.compute_dtype reaches the refiner; the pipeline's
     compute_dtype does not (it is the matcher's, as in JAX)."""
     from detectorfreesfm_tpu_torch import pipeline
+    from detectorfreesfm_tpu_torch.parallel.mesh import make_mesh
     from detectorfreesfm_tpu_torch.refine import loop
 
     seen = []
@@ -433,7 +434,8 @@ def test_refine_config_compute_dtype_reaches_refiner(monkeypatch):
         with pytest.raises(ZeroDivisionError):
             loop._refine_iteration(None, None, [], None,
                                    loop.RefineConfig(compute_dtype=dtype),
-                                   None, 0, False, 0, torch.device("cpu"))
+                                   None, 0, False, 0,
+                                   make_mesh(devices=["cpu"]))
     assert [c.compute_dtype for c in seen] == ["float32", "bfloat16"]
     cfg = pipeline.PipelineConfig(compute_dtype="bfloat16")
     assert cfg.refine.compute_dtype == "float32"

@@ -934,3 +934,70 @@ def test_trace_shows_both_passes_inside_match_forward(tmp_path):
     assert found["ranges"] == 1, found
     assert found["kernels_in_range"]["dsm_pass1"] >= 1, found
     assert found["kernels_in_range"]["dsm_pass2"] >= 1, found
+
+
+@pytest.mark.cuda
+def test_kernels_launch_on_the_card_of_their_inputs():
+    """Inputs on the last visible card while the first is current: both
+    passes run there (the library's SM count, shared-memory limit and
+    stream are that card's) and agree with their plain versions; the
+    current card is left as it was. Needs two cards (the smoke's mesh
+    phase runs the same gate where two are present)."""
+    _needs_cuda()
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two CUDA cards")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    last = torch.device("cuda", n - 1)
+    f0, f1, m0, m1 = (t.to(last) for t in _features(2, 1000, 777, 256))
+    ops = fused_dsm.split_features(f0, f1, m0, m1)
+    with torch.cuda.device(0):
+        lse_r, lse_c = fused_dsm.dsm_pass1(*ops)
+        _, rarg, _, carg = fused_dsm.dsm_pass2(*ops, lse_r, lse_c)
+        assert torch.cuda.current_device() == 0
+    torch.cuda.synchronize(last)
+    ref_r, ref_c = fused_dsm.dsm_pass1_plain(*ops)
+    _, prarg, _, pcarg = fused_dsm.dsm_pass2_plain(*ops, lse_r, lse_c)
+    assert lse_r.device == last and rarg.device == last
+    assert (lse_r - ref_r)[m0].abs().max().item() <= 2e-3
+    assert (lse_c - ref_c)[m1].abs().max().item() <= 2e-3
+    assert (rarg == prarg)[m0].float().mean().item() >= 0.995
+    assert (carg == pcarg)[m1].float().mean().item() >= 0.995
+
+
+@pytest.mark.cuda
+def test_engine_on_a_two_entry_mesh_of_one_card_equals_one_entry():
+    """[cuda:0, cuda:0]: 3 pairs at 256 px, fused, batch 1 per entry (two
+    steps, the last padded), give the one-entry engine's matches exactly,
+    with one launch of each pass per entry and step."""
+    _needs_cuda()
+    from detectorfreesfm_tpu_torch.data.images import from_array
+    from detectorfreesfm_tpu_torch.data.synthetic import (SyntheticConfig,
+                                                          generate_scene)
+    from detectorfreesfm_tpu_torch.match.engine import (EngineConfig,
+                                                        PairMatchingEngine)
+    from detectorfreesfm_tpu_torch.match.pairs import exhaustive_pairs
+    from detectorfreesfm_tpu_torch.parallel.mesh import make_mesh
+    from detectorfreesfm_tpu_torch.utils.checkpoint import load_matcher_params
+
+    imgs = generate_scene(1, SyntheticConfig(size=256, n_views=3))[0]
+    names = [f"v{i}" for i in range(3)]
+    images = {n: from_array(imgs[i]) for i, n in enumerate(names)}
+    pairs = exhaustive_pairs(names)
+    cfg = EngineConfig(img_resize=256, fine_enabled=True,
+                       round_matches_ratio=4, fused_matching=True)
+    params = load_matcher_params(WEIGHTS, cfg.matcher_config())
+    one = PairMatchingEngine(cfg, params, device="cuda:0").match_pairs(
+        pairs, images)
+    two = PairMatchingEngine(cfg, params,
+                             mesh=make_mesh(devices=["cuda:0", "cuda:0"]))
+    assert two.models[0] is two.models[1]
+    before = dict(fused_dsm.launches)
+    got = two.match_pairs(pairs, images)
+    assert {k: fused_dsm.launches[k] - before[k] for k in before} == {
+        "dsm_pass1": 4, "dsm_pass2": 4}
+    assert list(got) == pairs
+    for p in pairs:
+        assert len(one[p]["conf"]) > 20
+        for k in ("kpts0", "kpts1", "conf"):
+            np.testing.assert_array_equal(got[p][k], one[p][k])

@@ -301,8 +301,6 @@ def test_selfsup_loaders_delegate_to_checkpoint():
 
 # JAX names that have no counterpart in the port, each with its reason.
 ALLOWED_MISSING = {
-    # Several cards: ROADMAP item 19, the last slice.
-    "detectorfreesfm_tpu.parallel.mesh": "*",
     # The Pallas kernels: ported as ops/fused_dsm.py (dsm_pass1, dsm_pass2)
     # over csrc/dual_softmax.cu.
     "detectorfreesfm_tpu.ops.pallas_dsm": "*",
