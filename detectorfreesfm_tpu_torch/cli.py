@@ -46,6 +46,9 @@ prints one JSON line per scene and writes the aggregated metrics.txt
 (pose AUCs and the registered ratio, per IMC bag with --imc-bags);
 --isolate-scenes runs each scene in a subprocess of the `reconstruct`
 verb, with one resuming retry after a crash or a --scene-timeout.
+`reconstruct --trace-dir DIR` runs the verb inside utils.profiler's
+`trace_to(DIR)`: a Chrome trace of the host and the card, and spans.json
+beside it.
 
 `--dtype bfloat16` (reconstruct, eval-dataset) runs the matcher in bf16,
 and `--dtype-train bfloat16` (train-matcher, train-matcher-selfsup) trains
@@ -265,7 +268,14 @@ def _run_scene(args) -> dict:
 
 
 def cmd_reconstruct(args) -> int:
-    result = _run_scene(args)
+    trace_dir = getattr(args, "trace_dir", None)
+    if trace_dir:
+        from .utils.profiler import trace_to
+
+        with trace_to(trace_dir):
+            result = _run_scene(args)
+    else:
+        result = _run_scene(args)
     print(json.dumps(result))
     return 0 if result.get("status") == "ok" else 1
 
@@ -606,6 +616,10 @@ def main(argv=None) -> int:
                     help="scene dir with images/ [poses/ intrins/]")
     sr.add_argument("--args-json", default=None, dest="args_json",
                     help="load the FULL option namespace from a JSON file")
+    sr.add_argument("--trace-dir", default=None, dest="trace_dir",
+                    help="run the verb under torch.profiler: a Chrome trace "
+                         "and spans.json (the program's spans and counters)"
+                         " into DIR")
     add_common(sr)
     sr.set_defaults(fn=cmd_reconstruct)
 

@@ -13,6 +13,15 @@ one is collected. Variable match counts come back as fixed-capacity slots
 with validity masks; the conversion to original pixels, the optional
 rounding to a pixel grid and the scene-level keypoint merge
 (ops/grid_merge.py) run on the host, in pair order.
+
+Under a torch profiler (utils/profiler.py) each step records the spans
+`engine/stage` (stack the step's frames and sizes, shard and copy them to
+the cards), `engine/launch` (enqueue each card's block), `engine/wait`
+(the blocking copy of the results to the host) and `engine/unpack`
+(rescale, rounding, the result dicts), and the counters `engine/pairs`
+(real pairs), `engine/pad_pairs` (the repeats that fill the last step) and
+`engine/new_shapes` (steps whose input shape this process had not run
+before: where cuDNN times its algorithms).
 """
 
 from __future__ import annotations
@@ -30,7 +39,10 @@ from ..models import LOFTR_FAMILY, MATCHER_NAMES, build_matcher
 from ..models.loftr import DetectorFreeMatcher, MatcherConfig
 from ..ops.grid_merge import merge_matches_to_keypoints
 from ..parallel.mesh import mesh_of, replicate_module, shard_leading_axis
-from ..utils.profiler import PassThroughProfiler
+from ..utils.profiler import PassThroughProfiler, count, span
+
+# (config, devices, frame shape) of every step this process has launched.
+_SHAPES_RUN: set = set()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -136,37 +148,51 @@ class PairMatchingEngine:
         def dispatch(start):
             """Stage one step and launch each device's block (asynchronous
             on the GPU)."""
-            chunk = list(pairs[start:start + step])
-            n = len(chunk)
-            while len(chunk) < step:  # pad with repeats; results discarded
-                chunk.append(chunk[-1])
-            img0 = np.stack([images[a].data for a, _ in chunk])[..., None]
-            img1 = np.stack([images[b].data for _, b in chunk])[..., None]
-            hw0 = np.array([(images[a].valid_size[1], images[a].valid_size[0])
-                            for a, _ in chunk], np.int64)
-            hw1 = np.array([(images[b].valid_size[1], images[b].valid_size[0])
-                            for _, b in chunk], np.int64)
-            blocks = shard_leading_axis((img0, img1, hw0, hw1), self.mesh)
-            res = [model(*blk) for model, blk in zip(self.models, blocks)]
+            with span("engine/stage"):
+                chunk = list(pairs[start:start + step])
+                n = len(chunk)
+                while len(chunk) < step:  # pad with repeats; discarded
+                    chunk.append(chunk[-1])
+                img0 = np.stack([images[a].data for a, _ in chunk])[..., None]
+                img1 = np.stack([images[b].data for _, b in chunk])[..., None]
+                hw0 = np.array([(images[a].valid_size[1],
+                                 images[a].valid_size[0])
+                                for a, _ in chunk], np.int64)
+                hw1 = np.array([(images[b].valid_size[1],
+                                 images[b].valid_size[0])
+                                for _, b in chunk], np.int64)
+                blocks = shard_leading_axis((img0, img1, hw0, hw1),
+                                            self.mesh)
+            shape = (cfg, tuple(self.mesh.data_devices), img0.shape,
+                     img1.shape)
+            count("engine/new_shapes", int(shape not in _SHAPES_RUN))
+            _SHAPES_RUN.add(shape)
+            count("engine/pairs", n)
+            count("engine/pad_pairs", step - n)
+            with span("engine/launch"):
+                res = [model(*blk) for model, blk in zip(self.models,
+                                                         blocks)]
             return chunk, n, res
 
         def collect(chunk, n, res):
-            c0, c1, conf, valid = (
-                np.concatenate([r[k].cpu().numpy() for r in res])
-                for k in range(4))
-            for i, (a, b) in enumerate(chunk[:n]):
-                v = valid[i]
-                k0 = c0[i][v] * images[a].scale[None, :]
-                k1 = c1[i][v] * images[b].scale[None, :]
-                if cfg.round_matches_ratio:
-                    r = float(cfg.round_matches_ratio)
-                    k0 = np.round(k0 / r) * r
-                    k1 = np.round(k1 / r) * r
-                out[(a, b)] = {
-                    "kpts0": k0.astype(np.float32),
-                    "kpts1": k1.astype(np.float32),
-                    "conf": conf[i][v].astype(np.float32),
-                }
+            with span("engine/wait"):
+                c0, c1, conf, valid = (
+                    np.concatenate([r[k].cpu().numpy() for r in res])
+                    for k in range(4))
+            with span("engine/unpack"):
+                for i, (a, b) in enumerate(chunk[:n]):
+                    v = valid[i]
+                    k0 = c0[i][v] * images[a].scale[None, :]
+                    k1 = c1[i][v] * images[b].scale[None, :]
+                    if cfg.round_matches_ratio:
+                        r = float(cfg.round_matches_ratio)
+                        k0 = np.round(k0 / r) * r
+                        k1 = np.round(k1 / r) * r
+                    out[(a, b)] = {
+                        "kpts0": k0.astype(np.float32),
+                        "kpts1": k1.astype(np.float32),
+                        "conf": conf[i][v].astype(np.float32),
+                    }
 
         # One-deep software pipeline: launch step i+1 before bringing back
         # step i's results, so host staging overlaps device compute.

@@ -17,6 +17,12 @@ in bf16; matching on fp32 copies of the coarse features (dense and fused
 alike), and the fine window's correlation and soft-argmax in fp32.
 
 The TPU kernel's tile sizes (`dsm_tile_l/s`) have no counterpart here.
+
+Under a torch profiler (utils/profiler.py) the forward records the spans
+`matcher/backbone`, `matcher/coarse_transformer` (each the module's
+call), `matcher/dual_softmax` (the confidence and the top-K extraction,
+dense or fused) and `matcher/fine` (the fine stage at the matches), with
+their device time.
 """
 
 from __future__ import annotations
@@ -36,6 +42,7 @@ from ..ops.dual_softmax import (
     extract_topk_matches,
 )
 from ..ops.fused_dsm import fused_extract_matches
+from ..utils.profiler import span
 from .backbone import ResNetFPN_8_2
 from .position_encoding import add_position_encoding
 from .transformer import LocalFeatureTransformer
@@ -174,12 +181,14 @@ class DetectorFreeMatcher(nn.Module):
         int (B, Kf) coarse cells, so do the fine head's (delta, std) there:
         out[, conf][, (delta, std)], as in JAX."""
         cfg = self.cfg
+        dev = image0.device
         b, h, wd = image0.shape[:3]
         h8, w8 = h // 8, wd // 8
         # Shared backbone over both images in one batch of 2B.
         both = torch.cat([image0, image1], dim=0).to(cfg.dtype).permute(
             0, 3, 1, 2)
-        coarse, fine = self.backbone(both)
+        with span("matcher/backbone", dev):
+            coarse, fine = self.backbone(both)
         coarse = coarse.permute(0, 2, 3, 1)
         fine = fine.permute(0, 2, 3, 1)
         coarse = add_position_encoding(coarse).reshape(2 * b, h8 * w8, -1)
@@ -187,24 +196,29 @@ class DetectorFreeMatcher(nn.Module):
 
         mask0 = grid_valid(valid_hw0, b, h8, w8, cfg.border, image0.device)
         mask1 = grid_valid(valid_hw1, b, h8, w8, cfg.border, image0.device)
-        c0, c1 = self.coarse_transformer(c0, c1, mask0, mask1)
+        with span("matcher/coarse_transformer", dev):
+            c0, c1 = self.coarse_transformer(c0, c1, mask0, mask1)
 
         conf = None
-        if cfg.fused_matching and not return_conf:
-            matches = fused_extract_matches(
-                c0, c1, mask0, mask1, cfg.match_threshold, cfg.max_matches,
-                temperature=cfg.dsoftmax_temperature,
-                fast_exp=cfg.dsm_fast_exp)
-        else:
-            conf = dual_softmax_confidence(c0.float(), c1.float(), mask0,
-                                           mask1, cfg.dsoftmax_temperature)
-            matches = extract_topk_matches(conf, cfg.match_threshold,
-                                           cfg.max_matches)
+        with span("matcher/dual_softmax", dev):
+            if cfg.fused_matching and not return_conf:
+                matches = fused_extract_matches(
+                    c0, c1, mask0, mask1, cfg.match_threshold,
+                    cfg.max_matches, temperature=cfg.dsoftmax_temperature,
+                    fast_exp=cfg.dsm_fast_exp)
+            else:
+                conf = dual_softmax_confidence(
+                    c0.float(), c1.float(), mask0, mask1,
+                    cfg.dsoftmax_temperature)
+                matches = extract_topk_matches(conf, cfg.match_threshold,
+                                               cfg.max_matches)
 
         xy0 = cells_to_xy(matches.idx0, w8)
         xy1 = cells_to_xy(matches.idx1, w8)
         if cfg.fine_enabled:
-            delta, _std = self.fine_match(fine[:b], fine[b:], matches, w8)
+            with span("matcher/fine", dev):
+                delta, _std = self.fine_match(fine[:b], fine[b:], matches,
+                                              w8)
             xy1 = xy1 + delta
         out = MatchOutput(xy0, xy1, matches.conf, matches.valid)
         extra = (conf,) if return_conf else ()

@@ -12,6 +12,12 @@ every query point by the soft-argmax expectation of that correlation.
 `compute_dtype="bfloat16"` (JAX's bf16 path, models/layers.py) the patches,
 S2DNet and the transformer run in bf16 on fp32 parameters; the
 correlation and the expectation run on fp32 copies, as in JAX.
+
+Under a torch profiler (utils/profiler.py) the forward records the spans
+`refiner/s2dnet` and `refiner/transformer` (each the module's call), with
+their device time, and the counters `refiner/chunks`, `refiner/slots`
+(T x V node slots, from the shapes) and `refiner/live_slots` (the slots
+`node_mask` keeps, summed on the device).
 """
 
 from __future__ import annotations
@@ -25,6 +31,7 @@ from torch import nn
 from ..device import compute_dtype
 from ..ops.dsnt import soft_argmax_refine
 from ..ops.roi_align import extract_patches
+from ..utils.profiler import count, span
 from .s2dnet import S2DNet
 from .transformer import LocalFeatureTransformer
 
@@ -80,12 +87,17 @@ class MultiviewRefiner(nn.Module):
         t, v = node_img.shape
         w = cfg.window
         c = cfg.d_model
+        dev = images.device
+        count("refiner/chunks", 1)
+        count("refiner/slots", t * v)
+        count("refiner/live_slots", lambda: node_mask.sum())
 
         # --- patch extraction + backbone (one dense batch) ------------------
         patches = extract_patches(
             images, node_xy.reshape(t * v, 2), node_img.reshape(t * v),
             cfg.crop_size, node_scale.reshape(t * v))   # (T*V, P, P, 1)
-        feats = self.backbone(patches.to(cfg.dtype).permute(0, 3, 1, 2))
+        with span("refiner/s2dnet", dev):
+            feats = self.backbone(patches.to(cfg.dtype).permute(0, 3, 1, 2))
         off = (cfg.crop_size - w) // 2
         feats = feats[:, :, off:off + w, off:off + w]
         feats = feats.permute(0, 2, 3, 1).reshape(t, v, w * w, c)
@@ -95,7 +107,8 @@ class MultiviewRefiner(nn.Module):
         qry = feats[:, 1:].reshape(t, (v - 1) * w * w, c)
         ref_mask = node_mask[:, 0:1].expand(t, w * w)
         qry_mask = node_mask[:, 1:].repeat_interleave(w * w, dim=1)
-        ref, qry = self.transformer(ref, qry, ref_mask, qry_mask)
+        with span("refiner/transformer", dev):
+            ref, qry = self.transformer(ref, qry, ref_mask, qry_mask)
 
         # --- correlation + expectation ---------------------------------------
         qry = l2n(qry.reshape(t, v - 1, w * w, c).float())

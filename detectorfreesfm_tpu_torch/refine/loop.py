@@ -23,7 +23,12 @@ Port of the JAX package's refine/loop.py. Per iteration:
 The three steps open the JAX package's profiler scopes through a
 PassThroughProfiler (utils/profiler.py): `refine/pack_tracks`,
 `refine/multiview_match` and `refine/geometry_refinement`, seen in a
-`trace_to` trace. As in JAX, there is no `profiler=` argument.
+`trace_to` trace. As in JAX, there is no `profiler=` argument. Under a
+torch profiler the multiview match also records the spans `refine/stage`
+(pad and shard a chunk onto the cards), `refine/launch` (enqueue the
+refiner on each card), `refine/wait` (the blocking copy of the refined
+coordinates to the host) and `refine/writeback` (the loop that writes
+them into the reconstruction's keypoints).
 
 A failed iteration restores the model it started from and ends the loop
 (the reference's failure isolation). The failure is not hidden: pass
@@ -62,7 +67,7 @@ from ..parallel.mesh import (mesh_of, pad_to_multiple, replicate,
                              replicate_module, shard_leading_axis)
 from ..sfm.mapper import IncrementalMapper, MapperConfig
 from ..sfm.reconstruction import Reconstruction
-from ..utils.profiler import PassThroughProfiler
+from ..utils.profiler import PassThroughProfiler, span
 from .bags import pack_track_table
 
 
@@ -240,34 +245,39 @@ def _refine_iteration(rec, images_dev, image_order, params, cfg, mapper,
         """Stage one track chunk and launch each device's block
         (asynchronous on the cards)."""
         end = min(start + chunk, T_total)
-        blocks = shard_leading_axis(
-            (_pad_tracks(node_img_g[start:end], chunk),
-             _pad_tracks(table.node_xy[start:end], chunk),
-             _pad_tracks(table.node_scale[start:end], chunk, 1.0),
-             _pad_tracks(table.node_mask[start:end], chunk)), mesh)
+        with span("refine/stage"):
+            blocks = shard_leading_axis(
+                (_pad_tracks(node_img_g[start:end], chunk),
+                 _pad_tracks(table.node_xy[start:end], chunk),
+                 _pad_tracks(table.node_scale[start:end], chunk, 1.0),
+                 _pad_tracks(table.node_mask[start:end], chunk)), mesh)
         evs, outs = [], []
         t0 = time.perf_counter()
-        for model, images, batch in zip(models, images_dev, blocks):
-            if cuda:
-                ev = (torch.cuda.Event(enable_timing=True),
-                      torch.cuda.Event(enable_timing=True))
-                ev[0].record(torch.cuda.current_stream(images.device))
-            # Full fp32 products and bf16 GEMMs reduced in fp32, whichever
-            # the refiner's dtype; cuDNN's heuristic algorithms (see above).
-            with geometry_precision(), bf16_reduced_in_fp32(), \
-                    torch.backends.cudnn.flags(
-                        enabled=True, benchmark=False, deterministic=False,
-                        allow_tf32=False), torch.no_grad():
-                outs.append(model(images, *batch))
-            if cuda:
-                ev[1].record(torch.cuda.current_stream(images.device))
-                evs.append(ev)
+        with span("refine/launch"):
+            for model, images, batch in zip(models, images_dev, blocks):
+                if cuda:
+                    ev = (torch.cuda.Event(enable_timing=True),
+                          torch.cuda.Event(enable_timing=True))
+                    ev[0].record(torch.cuda.current_stream(images.device))
+                # Full fp32 products and bf16 GEMMs reduced in fp32,
+                # whichever the refiner's dtype; cuDNN's heuristic
+                # algorithms (see above).
+                with geometry_precision(), bf16_reduced_in_fp32(), \
+                        torch.backends.cudnn.flags(
+                            enabled=True, benchmark=False,
+                            deterministic=False, allow_tf32=False), \
+                        torch.no_grad():
+                    outs.append(model(images, *batch))
+                if cuda:
+                    ev[1].record(torch.cuda.current_stream(images.device))
+                    evs.append(ev)
         if not cuda:
             evs = (time.perf_counter() - t0) * 1e3
         return start, end - start, outs, evs
 
     def collect(start, n, outs, evs):
-        coords = torch.cat([o.coords.cpu() for o in outs])[:n].numpy()
+        with span("refine/wait"):
+            coords = torch.cat([o.coords.cpu() for o in outs])[:n].numpy()
         # A chunk's device ms: its slowest block's.
         forward_ms.append(max(a.elapsed_time(b) for a, b in evs) if cuda
                           else evs)
@@ -276,16 +286,17 @@ def _refine_iteration(rec, images_dev, image_order, params, cfg, mapper,
             coords[:, 1:][mq] - table.node_xy[start:start + n, 1:][mq],
             axis=1))
         # Write refined query observations back into image keypoints
-        for r in range(n):
-            pid = table.point_ids[start + r]
-            if pid not in rec.points:
-                continue
-            for vpos in range(1, coords.shape[1]):
-                if not table.node_mask[start + r, vpos]:
+        with span("refine/writeback"):
+            for r in range(n):
+                pid = table.point_ids[start + r]
+                if pid not in rec.points:
                     continue
-                img_id = table.image_ids[table.node_img[start + r, vpos]]
-                kpt = int(table.node_kpt[start + r, vpos])
-                rec.images[img_id].xys[kpt] = coords[r, vpos]
+                for vpos in range(1, coords.shape[1]):
+                    if not table.node_mask[start + r, vpos]:
+                        continue
+                    img_id = table.image_ids[table.node_img[start + r, vpos]]
+                    kpt = int(table.node_kpt[start + r, vpos])
+                    rec.images[img_id].xys[kpt] = coords[r, vpos]
 
     t0 = time.perf_counter()
     with profiler.record_function("refine/multiview_match"):

@@ -1001,3 +1001,80 @@ def test_engine_on_a_two_entry_mesh_of_one_card_equals_one_entry():
         assert len(one[p]["conf"]) > 20
         for k in ("kpts0", "kpts1", "conf"):
             np.testing.assert_array_equal(got[p][k], one[p][k])
+
+
+@pytest.mark.cuda
+def test_layer_spans_agree_with_module_hooks():
+    """Over one 832 px step of the engine (8 pairs, the fine stage on) and
+    one refinement chunk (512 tracks of 16 slots at window 15, the r4
+    weights), under a torch profiler: the program's spans
+    `matcher/backbone`, `matcher/coarse_transformer`, `refiner/s2dnet`
+    and `refiner/transformer` read within 2% of the CUDA events that
+    portbench/timing.py's ModuleTimer records in forward hooks around the
+    same calls; `matcher/dual_softmax` and `matcher/fine` read a device
+    time too."""
+    _needs_cuda()
+    import sys
+
+    sys.path.insert(0, REPO)
+    from torch.profiler import ProfilerActivity, profile
+
+    from detectorfreesfm_tpu_torch.data.images import from_array
+    from detectorfreesfm_tpu_torch.data.synthetic import (SyntheticConfig,
+                                                          generate_scene)
+    from detectorfreesfm_tpu_torch.match.engine import (EngineConfig,
+                                                        PairMatchingEngine)
+    from detectorfreesfm_tpu_torch.models.multiview_matcher import (
+        MultiviewRefiner, RefinerConfig)
+    from detectorfreesfm_tpu_torch.utils.checkpoint import (
+        load_matcher_params, load_refiner_params)
+    from detectorfreesfm_tpu_torch.utils.profiler import snapshot
+    from portbench.timing import ModuleTimer
+
+    dev = torch.device("cuda", 0)
+    imgs = generate_scene(1, SyntheticConfig(size=832, n_views=3))[0]
+    names = [f"v{i}" for i in range(3)]
+    images = {n: from_array(imgs[i]) for i, n in enumerate(names)}
+    pairs = [(names[i % 3], names[(i + 1) % 3]) for i in range(8)]
+    cfg = EngineConfig(img_resize=832, batch_size=8, fine_enabled=True)
+    engine = PairMatchingEngine(
+        cfg, load_matcher_params(WEIGHTS, cfg.matcher_config()), device=dev)
+
+    rng = np.random.default_rng(5)
+    t, v = 512, 16
+    mask = rng.uniform(size=(t, v)) > 0.5
+    mask[:, :2] = True
+    inputs = [torch.as_tensor(a, device=dev) for a in (
+        rng.uniform(0, 1, (v, 624, 832, 1)).astype(np.float32),
+        rng.integers(0, v, (t, v)),
+        rng.uniform(20, 600, (t, v, 2)).astype(np.float32),
+        rng.uniform(0.8, 1.25, (t, v)).astype(np.float32), mask)]
+    rcfg = RefinerConfig(crop_size=19, window=15)
+    refiner = MultiviewRefiner(rcfg)
+    refiner.load_state_dict(load_refiner_params(
+        os.path.join(REPO, "weights", "demo_refiner_r4_bf16.msgpack"),
+        rcfg, dev))
+    refiner = refiner.to(dev).eval()
+
+    def step():
+        engine.match_pairs(pairs, images)
+        with torch.no_grad():
+            refiner(*inputs)
+
+    step()  # warm-up: cuDNN's choices
+    timer = ModuleTimer({
+        "matcher/backbone": [engine.model.backbone],
+        "matcher/coarse_transformer": [engine.model.coarse_transformer],
+        "refiner/s2dnet": [refiner.backbone],
+        "refiner/transformer": [refiner.transformer]}, dev)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        step()
+    hooks = timer.total_ms()
+    timer.remove()
+    spans = snapshot()["spans"]
+    for name, ms in hooks.items():
+        assert spans[name]["calls"] == 1, name
+        assert abs(spans[name]["device_ms"] - ms) <= 0.02 * ms, (
+            name, spans[name], ms)
+    assert spans["matcher/dual_softmax"]["device_ms"] > 0
+    assert spans["matcher/fine"]["device_ms"] > 0

@@ -1,5 +1,6 @@
 """The port's profiler (utils/profiler.py) and the scopes of its engine and
-refinement against the JAX package's, the remaining small names
+refinement against the JAX package's, the port's own spans and counters
+(recorded only while a profiler runs), the remaining small names
 (plot_matches, the package re-exports, the selfsup loaders), and a walk
 over both packages' public names. Counts and names are compared exactly;
 the match plot by its image size."""
@@ -61,11 +62,16 @@ def test_profiler_scopes(prof):
 
 def test_profiler_kinds_and_summaries_equal_jax():
     """get_profiler gives the same classes for the same kinds and refuses
-    the same; SimpleProfiler's table is JAX's for the same totals;
-    AdvancedProfiler heads each action as JAX's does."""
-    for kind in (None, "", "pass", "passthrough", "simple", "advanced"):
+    the same, but for "advanced" (JAX's cProfile per scope), which the
+    port refuses: no verb, smoke or benchmark read it, and the port's
+    spans and `trace_to` give each scope's host time. SimpleProfiler's
+    table is JAX's for the same totals."""
+    for kind in (None, "", "pass", "passthrough", "simple"):
         assert (type(TPR.get_profiler(kind)).__name__
                 == type(JPR.get_profiler(kind)).__name__)
+    assert type(JPR.get_profiler("advanced")).__name__ == "AdvancedProfiler"
+    with pytest.raises(ValueError):
+        TPR.get_profiler("advanced")
     for prof in (JPR, TPR):
         with pytest.raises(ValueError):
             prof.get_profiler("xprof")
@@ -74,12 +80,6 @@ def test_profiler_kinds_and_summaries_equal_jax():
         p.totals.update({"engine/match_forward": 1.25, "b": 3.5})
         p.counts.update({"engine/match_forward": 3, "b": 7})
     assert t.summary() == j.summary()
-    j, t = JPR.AdvancedProfiler(), TPR.AdvancedProfiler()
-    for p in (j, t):
-        with p.record_function("phase_b"):
-            sum(range(100))
-    assert t.summary().splitlines()[0] == j.summary().splitlines()[0]
-    assert "function calls" in t.summary()
 
 
 # --- the engine's scopes -----------------------------------------------------
@@ -160,6 +160,129 @@ def test_engine_scopes_equal_jax_engine(tmp_path):
     assert all(n in tp.summary() for n in ENGINE_SCOPES)
 
 
+# --- the recorder: spans and counters while a profiler runs ----------------
+
+ENGINE_STEPS = ("engine/stage", "engine/launch", "engine/wait",
+                "engine/unpack")
+MATCHER_SPANS = ("matcher/backbone", "matcher/coarse_transformer",
+                 "matcher/dual_softmax")
+
+
+def _frames():
+    from detectorfreesfm_tpu_torch.data.images import from_array
+
+    names, imgs = _scene()
+    return names, {n: from_array(im) for n, im in zip(names, imgs)}
+
+
+def _refiner_forward(seed=0):
+    """A 4-view, 6-track forward of a small refiner (random weights):
+    its node mask."""
+    from detectorfreesfm_tpu_torch.models.multiview_matcher import (
+        MultiviewRefiner, RefinerConfig)
+
+    rng = np.random.default_rng(seed)
+    t, v = 6, 4
+    mask = torch.from_numpy(rng.uniform(size=(t, v)) > 0.4)
+    mask[:, 0] = True
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        model = MultiviewRefiner(RefinerConfig(
+            crop_size=11, window=7, d_model=32, n_layers=1)).eval()
+    with torch.no_grad():
+        model(torch.from_numpy(rng.uniform(0, 1, (2, 48, 48, 1)).astype(
+                  np.float32)),
+              torch.from_numpy(rng.integers(0, 2, (t, v))),
+              torch.from_numpy(rng.uniform(8, 40, (t, v, 2)).astype(
+                  np.float32)),
+              torch.ones(t, v), mask)
+    return mask
+
+
+def _session():
+    from torch.profiler import ProfilerActivity, profile
+
+    return profile(activities=[ProfilerActivity.CPU])
+
+
+def test_spans_record_nothing_without_a_profiler(monkeypatch):
+    """With no profiler running, an engine call and a refiner forward
+    leave the snapshot empty and open no record_function range."""
+    opened = []
+    real = torch.profiler.record_function
+    monkeypatch.setattr(torch.profiler, "record_function",
+                        lambda *a, **k: opened.append(a) or real(*a, **k))
+    names, images = _frames()
+    TPR.reset()
+    _port_engine(None).match_pairs([(names[0], names[1])], images)
+    _refiner_forward()
+    assert TPR.snapshot() == {"spans": {}, "counters": {}}
+    assert opened == []
+    with TPR.span("probe", device="cpu"):
+        pass
+    assert TPR.snapshot()["spans"] == {} and opened == []
+
+
+def test_engine_spans_and_counters_in_a_session():
+    """3 pairs at batch 2: two steps, each staged, launched, waited for
+    and unpacked once; 3 real pairs and 1 repeat; the matcher's spans
+    once a step, with no device time off the card; the existing scope
+    once. The engine's first step shape counts as new, a repeat does
+    not."""
+    from detectorfreesfm_tpu_torch.match.engine import _SHAPES_RUN
+
+    names, images = _frames()
+    engine = _port_engine(None)
+    pairs = [(names[0], names[1]), (names[0], names[2]),
+             (names[1], names[2])]
+    _SHAPES_RUN.clear()
+    with _session():
+        engine.match_pairs(pairs, images)
+    snap = TPR.snapshot()
+    spans, counters = snap["spans"], snap["counters"]
+    for name in ENGINE_STEPS + MATCHER_SPANS:
+        assert spans[name]["calls"] == 2, name
+        assert spans[name]["host_ms"] > 0 and \
+            spans[name]["device_ms"] is None, name
+    assert "matcher/fine" not in spans          # coarse_only
+    assert spans["engine/match_forward"]["calls"] == 1
+    assert counters == {"engine/pairs": 3, "engine/pad_pairs": 1,
+                        "engine/new_shapes": 1}
+    launch = spans["engine/launch"]["host_ms"]
+    assert sum(spans[n]["host_ms"] for n in MATCHER_SPANS) <= launch
+
+
+def test_refiner_counts_its_slots():
+    """A refiner forward counts T x V slots and node_mask.sum() live ones,
+    one chunk, and spans its S2DNet and its transformer once."""
+    with _session():
+        mask = _refiner_forward(seed=3)
+    snap = TPR.snapshot()
+    assert snap["counters"] == {"refiner/chunks": 1, "refiner/slots": 24,
+                                "refiner/live_slots": int(mask.sum())}
+    assert 0 < int(mask.sum()) < 24
+    assert {n: s["calls"] for n, s in snap["spans"].items()} == {
+        "refiner/s2dnet": 1, "refiner/transformer": 1}
+
+
+def test_a_session_holds_only_its_own_spans():
+    """Engine calls in two profiler sessions, and between them: the second
+    session's snapshot holds its own call alone."""
+    names, images = _frames()
+    engine = _port_engine(None)
+    two = [(names[0], names[1]), (names[0], names[2])]
+    with _session():
+        engine.match_pairs(two, images)
+    assert TPR.snapshot()["counters"]["engine/pairs"] == 2
+    engine.match_pairs(two, images)
+    with _session():
+        engine.match_pairs(two[:1], images)
+    snap = TPR.snapshot()
+    assert snap["counters"] == {"engine/pairs": 1, "engine/pad_pairs": 1,
+                                "engine/new_shapes": 0}
+    assert {snap["spans"][n]["calls"] for n in ENGINE_STEPS} == {1}
+
+
 # --- trace_to: the engine and the refinement in one trace -------------------
 
 
@@ -206,7 +329,9 @@ def trace(tmp_path_factory):
     assert len(files) == 1, files
     with open(files[0]) as f:
         events = json.load(f)["traceEvents"]
-    return events, info
+    with open(os.path.join(logdir, "spans.json")) as f:
+        spans = json.load(f)
+    return events, info, spans
 
 
 def _ranges(events):
@@ -218,7 +343,7 @@ def test_trace_holds_the_engine_scopes(trace):
     """trace_to writes one Chrome trace whose ranges hold the engine's
     three scopes, each once (the engine takes a PassThroughProfiler by
     default, which opens the same ranges)."""
-    events, _info = trace
+    events, _info, _spans = trace
     ranges = _ranges(events)
     assert all(ranges.get(n) == 1 for n in ENGINE_SCOPES), ranges
 
@@ -226,13 +351,54 @@ def test_trace_holds_the_engine_scopes(trace):
 def test_trace_holds_the_refinement_scopes(trace):
     """The refinement takes no profiler= argument (as in JAX) and still
     opens its three scopes, once per iteration, in that order."""
-    events, info = trace
+    events, info, _spans = trace
     assert info["iterations_completed"] == 1 and info["error"] is None
     ranges = _ranges(events)
     assert all(ranges.get(n) == 1 for n in REFINE_SCOPES), ranges
     start = {e["name"]: e["ts"] for e in events
              if e.get("name") in REFINE_SCOPES}
     assert sorted(REFINE_SCOPES, key=start.get) == list(REFINE_SCOPES)
+
+
+def test_trace_to_writes_the_spans_beside_the_trace(trace):
+    """spans.json, beside the Chrome trace, holds the block's snapshot:
+    the engine's steps and the refinement's, each as often as its range
+    is in the trace, and the engine's counters (3 pairs of 3 views)."""
+    events, _info, snap = trace
+    ranges = _ranges(events)
+    steps = ENGINE_STEPS + ("refine/stage", "refine/launch", "refine/wait",
+                            "refine/writeback")
+    for name in steps + ENGINE_SCOPES + REFINE_SCOPES:
+        assert snap["spans"][name]["calls"] == ranges[name] >= 1, name
+    assert snap["counters"]["engine/pairs"] == 3
+    assert snap["counters"]["refiner/chunks"] == \
+        snap["spans"]["refine/launch"]["calls"]
+
+
+def test_reconstruct_trace_dir_runs_the_verb_in_trace_to(tmp_path,
+                                                         monkeypatch):
+    """`cli reconstruct --trace-dir DIR` runs the verb under a profiler and
+    leaves the Chrome trace and spans.json, with the verb's spans, in
+    DIR."""
+    from detectorfreesfm_tpu_torch import cli
+
+    seen = []
+
+    def verb(args):
+        seen.append(torch.autograd.profiler._is_profiler_enabled)
+        with TPR.span("verb/probe"):
+            pass
+        return {"status": "ok"}
+
+    monkeypatch.setattr(cli, "_run_scene", verb)
+    logdir = tmp_path / "trace"
+    assert cli.main(["reconstruct", "--images", str(tmp_path), "--output",
+                     str(tmp_path / "out"), "--device", "cpu",
+                     "--trace-dir", str(logdir)]) == 0
+    assert seen == [True]
+    assert len(glob.glob(str(logdir / "*.pt.trace.json"))) == 1
+    with open(logdir / "spans.json") as f:
+        assert json.load(f)["spans"]["verb/probe"]["calls"] == 1
 
 
 # --- the remaining names ----------------------------------------------------
@@ -317,6 +483,9 @@ ALLOWED_MISSING = {
     # h5py nor PIL.
     "detectorfreesfm_tpu.data.h5io": {"HAS_H5PY"},
     "detectorfreesfm_tpu.data.images": {"HAS_PIL"},
+    # cProfile per scope: no verb, smoke or benchmark read it; the port's
+    # spans (utils/profiler.py) give each scope's host time in a trace.
+    "detectorfreesfm_tpu.utils.profiler": {"AdvancedProfiler"},
 }
 
 
