@@ -14,14 +14,31 @@ with validity masks; the conversion to original pixels, the optional
 rounding to a pixel grid and the scene-level keypoint merge
 (ops/grid_merge.py) run on the host, in pair order.
 
+A matcher with a per-image stage (`encode_views`, the LoFTR family) runs
+it once per view of a call, not once per pair side: each row computes the
+distinct views that its blocks read, in batches of `batch_size` frames
+(the last padded with repeats), into a view store, and each step gathers
+its sides' ViewFeatures from the store, which the matcher's forward
+takes in place of frames (the pair stage alone, `match_views`). The
+store lives for one call. Where a call's views do not fit half the card's
+free memory (CPU_STORE_VIEWS off the card), consecutive steps are taken
+in groups whose views fit, the store freed between groups; the steps and
+the results keep the call's order either way. The other matchers (ASpan,
+and MatchFormer, whose encoder attends across the two images) run whole
+on each step's stacked frames.
+
 Under a torch profiler (utils/profiler.py) each step records the spans
-`engine/stage` (stack the step's frames and sizes, shard and copy them to
-the cards), `engine/launch` (enqueue each card's block), `engine/wait`
-(the blocking copy of the results to the host) and `engine/unpack`
-(rescale, rounding, the result dicts), and the counters `engine/pairs`
-(real pairs), `engine/pad_pairs` (the repeats that fill the last step) and
-`engine/new_shapes` (steps whose input shape this process had not run
-before: where cuDNN times its algorithms).
+`engine/stage` (the step's frames, or its sides' store rows, and sizes,
+sharded and copied to the cards), `engine/launch` (enqueue each card's
+block), `engine/wait` (the blocking copy of the results to the host) and
+`engine/unpack` (rescale, rounding, the result dicts); a store records
+`engine/stage` (its frames to the cards) and `engine/launch` (the
+per-image stage) once per group. Counters: `engine/pairs` (real pairs),
+`engine/pad_pairs` (the repeats that fill the last step),
+`engine/new_shapes` (steps and per-image batches whose shape this
+process had not run before: where cuDNN times its algorithms),
+`engine/views` (frames through the per-image stage, padding included)
+and `engine/view_uses` (pair sides read from the store, 2 x real pairs).
 """
 
 from __future__ import annotations
@@ -36,13 +53,23 @@ import torch
 from ..data.images import LoadedImage, load_gray
 from ..device import compute_dtype
 from ..models import LOFTR_FAMILY, MATCHER_NAMES, build_matcher
-from ..models.loftr import DetectorFreeMatcher, MatcherConfig
+from ..models.loftr import DetectorFreeMatcher, MatcherConfig, ViewFeatures
 from ..ops.grid_merge import merge_matches_to_keypoints
 from ..parallel.mesh import mesh_of, replicate_module, shard_leading_axis
 from ..utils.profiler import PassThroughProfiler, count, span
 
-# (config, devices, frame shape) of every step this process has launched.
+# The shape of every step and every per-image batch this process has
+# launched.
 _SHAPES_RUN: set = set()
+
+# Views a store off the card holds (a card's store takes half its free
+# memory instead).
+CPU_STORE_VIEWS = 64
+
+
+def _take(feats: ViewFeatures, rows) -> ViewFeatures:
+    """The store's features at `rows`."""
+    return ViewFeatures(*(f.index_select(0, rows) for f in feats))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -143,33 +170,55 @@ class PairMatchingEngine:
         cfg = self.cfg
         n_dev = len(self.models)
         step = cfg.batch_size * n_dev
+        devs = tuple(self.mesh.data_devices)
         out: Dict[Tuple[str, str], dict] = {}
+        steps = []
+        for start in range(0, len(pairs), step):
+            chunk = list(pairs[start:start + step])
+            n = len(chunk)
+            while len(chunk) < step:  # pad with repeats; discarded
+                chunk.append(chunk[-1])
+            steps.append((chunk, n))
+        # The matchers with a per-image stage run it once per view of a
+        # group of steps (the view store); the others once per pair side.
+        groups = (self._view_groups(steps, images)
+                  if steps and hasattr(self.model, "encode_views") else None)
 
-        def dispatch(start):
+        def dispatch(chunk, n, store):
             """Stage one step and launch each device's block (asynchronous
             on the GPU)."""
             with span("engine/stage"):
-                chunk = list(pairs[start:start + step])
-                n = len(chunk)
-                while len(chunk) < step:  # pad with repeats; discarded
-                    chunk.append(chunk[-1])
-                img0 = np.stack([images[a].data for a, _ in chunk])[..., None]
-                img1 = np.stack([images[b].data for _, b in chunk])[..., None]
                 hw0 = np.array([(images[a].valid_size[1],
                                  images[a].valid_size[0])
                                 for a, _ in chunk], np.int64)
                 hw1 = np.array([(images[b].valid_size[1],
                                  images[b].valid_size[0])
                                 for _, b in chunk], np.int64)
-                blocks = shard_leading_axis((img0, img1, hw0, hw1),
+                if store is None:
+                    side0 = np.stack([images[a].data for a, _ in chunk])
+                    side1 = np.stack([images[b].data for _, b in chunk])
+                    side0, side1 = side0[..., None], side1[..., None]
+                else:  # the sides' rows in their device's store
+                    rows = [store[j // cfg.batch_size][0]
+                            for j in range(step)]
+                    side0 = np.array([r[a] for r, (a, _) in
+                                      zip(rows, chunk)], np.int64)
+                    side1 = np.array([r[b] for r, (_, b) in
+                                      zip(rows, chunk)], np.int64)
+                blocks = shard_leading_axis((side0, side1, hw0, hw1),
                                             self.mesh)
-            shape = (cfg, tuple(self.mesh.data_devices), img0.shape,
-                     img1.shape)
+            shape = ("step", cfg, devs, step,
+                     images[chunk[0][0]].data.shape)
             count("engine/new_shapes", int(shape not in _SHAPES_RUN))
             _SHAPES_RUN.add(shape)
             count("engine/pairs", n)
             count("engine/pad_pairs", step - n)
             with span("engine/launch"):
+                if store is not None:  # each side's features by row
+                    count("engine/view_uses", 2 * n)
+                    blocks = [(_take(feats, i0), _take(feats, i1), h0, h1)
+                              for (i0, i1, h0, h1), (_, feats)
+                              in zip(blocks, store)]
                 res = [model(*blk) for model, blk in zip(self.models,
                                                          blocks)]
             return chunk, n, res
@@ -196,16 +245,95 @@ class PairMatchingEngine:
 
         # One-deep software pipeline: launch step i+1 before bringing back
         # step i's results, so host staging overlaps device compute.
-        pending = None
+        pending = store = None
         with self.profiler.record_function("engine/match_forward"):
-            for start in range(0, len(pairs), step):
-                nxt = dispatch(start)
+            for i, (chunk, n) in enumerate(steps):
+                if groups and i == groups[0][0]:
+                    store = None  # the last group's views go first
+                    store = self._build_store(groups.pop(0)[1], images)
+                nxt = dispatch(chunk, n, store)
                 if pending is not None:
                     collect(*pending)
                 pending = nxt
             if pending is not None:
                 collect(*pending)
         return out
+
+    # -- the view store -------------------------------------------------------
+
+    def _store_capacity(self, frame: Tuple[int, int]) -> list:
+        """Views each "data" row's store may hold, a multiple of
+        `batch_size` and at least one step's 2 x `batch_size`: half the
+        card's free memory (the caching allocator's spare blocks count as
+        free), split between the rows on that card, over a view's bytes;
+        CPU_STORE_VIEWS off the card."""
+        mc, bs = self.model.cfg, self.cfg.batch_size
+        h, w = frame
+        view_bytes = ((h // 8) * (w // 8) * mc.d_coarse
+                      + (h // 2) * (w // 2) * mc.d_fine) * mc.dtype.itemsize
+        devs = self.mesh.data_devices
+        caps = []
+        for dev in devs:
+            if dev.type == "cuda":
+                free = (torch.cuda.mem_get_info(dev)[0]
+                        + torch.cuda.memory_reserved(dev)
+                        - torch.cuda.memory_allocated(dev))
+                views = free // 2 // devs.count(dev) // view_bytes
+            else:
+                views = CPU_STORE_VIEWS
+            caps.append(max(views // bs * bs, 2 * bs))
+        return caps
+
+    def _view_groups(self, steps, images) -> list:
+        """[(first step, each row's views)]: runs of consecutive steps
+        whose distinct views fit every row's store, from the first step
+        on; a row's views in the order its blocks first read them."""
+        bs = self.cfg.batch_size
+        caps = self._store_capacity(images[steps[0][0][0][0]].data.shape)
+        groups = []
+        for i, (chunk, _) in enumerate(steps):
+            views = [dict.fromkeys(v for pair in chunk[d * bs:(d + 1) * bs]
+                                   for v in pair)
+                     for d in range(len(self.models))]
+            if groups:
+                merged = [{**h, **v} for h, v in zip(groups[-1][1], views)]
+                if all(len(m) <= c for m, c in zip(merged, caps)):
+                    groups[-1] = (groups[-1][0], merged)
+                    continue
+            groups.append((i, views))
+        return groups
+
+    def _build_store(self, rows, images) -> list:
+        """Per "data" row: ({view: row}, ViewFeatures of the rows) of the
+        row's views, run through its device's per-image stage in batches
+        of exactly `batch_size` frames (the last padded with repeats), so
+        that each frame size has one per-image shape."""
+        bs = self.cfg.batch_size
+        store = []
+        for model, dev, held in zip(self.models, self.mesh.data_devices,
+                                    rows):
+            names = list(held)
+            names += names[-1:] * (-len(names) % bs)
+            with span("engine/stage"):
+                frames = torch.from_numpy(np.stack(
+                    [images[v].data for v in names])).unsqueeze(-1).to(
+                        dev, non_blocking=True)
+            shape = ("views", self.cfg, dev, bs, frames.shape[1:])
+            count("engine/new_shapes", int(shape not in _SHAPES_RUN))
+            _SHAPES_RUN.add(shape)
+            count("engine/views", len(names))
+            feats = None
+            with span("engine/launch"):
+                for k in range(0, len(names), bs):
+                    part = model.encode_views(frames[k:k + bs])
+                    if feats is None:
+                        feats = [f.new_empty((len(names),) + f.shape[1:])
+                                 for f in part]
+                    for f, p in zip(feats, part):
+                        f[k:k + bs] = p
+            store.append(({v: r for r, v in enumerate(held)},
+                          ViewFeatures(*feats)))
+        return store
 
     def match_scene(self, pairs: Sequence[Tuple[str, str]],
                     image_paths: Dict[str, str]):

@@ -9,7 +9,10 @@ soft-argmax. Images enter NHWC (B, H, W, 1) in [0, 1], as in JAX; matches
 leave as fixed-capacity top-K sets in network-input pixels. The training
 paths are JAX's too: `return_conf` also returns the dense (B, L, S)
 confidence (and forces the dense path), and `fine_at` runs the same fine
-head at teacher-forced coarse cells.
+head at teacher-forced coarse cells. `forward` is the composition of the
+per-image stage (`encode_views`: the backbone and the position encoding)
+and the pair stage (`match_views`), and takes a pair's ViewFeatures in
+place of its frames: the engine computes each view once per call.
 
 `compute_dtype="bfloat16"` is JAX's bf16 path (models/layers.py): fp32
 parameters; the image, backbone, position encoding and both transformers
@@ -70,6 +73,13 @@ class MatcherConfig:
     @property
     def dtype(self) -> torch.dtype:
         return compute_dtype(self.compute_dtype)
+
+
+class ViewFeatures(NamedTuple):
+    """What the matcher's per-image stage gives for N views."""
+
+    coarse: torch.Tensor   # (N, h8 * w8, C) position-encoded, 1/8 grid
+    fine: torch.Tensor     # (N, H/2, W/2, C_f) NHWC
 
 
 class MatchOutput(NamedTuple):
@@ -175,27 +185,49 @@ class DetectorFreeMatcher(nn.Module):
 
     def forward(self, image0, image1, valid_hw0=None, valid_hw1=None,
                 return_conf: bool = False, fine_at=None):
-        """image0/1: (B, H, W, 1) in [0, 1]; valid_hw: (B, 2) int (h, w)
-        live region at full res, optional. With `return_conf` the dense
+        """image0/1: (B, H, W, 1) in [0, 1], or the ViewFeatures of B
+        views each (`encode_views`); valid_hw: (B, 2) int (h, w) live
+        region at full res, optional. With `return_conf` the dense
         (B, L, S) confidence comes back too; with `fine_at`, (idx0, idx1)
         int (B, Kf) coarse cells, so do the fine head's (delta, std) there:
-        out[, conf][, (delta, std)], as in JAX."""
-        cfg = self.cfg
-        dev = image0.device
-        b, h, wd = image0.shape[:3]
-        h8, w8 = h // 8, wd // 8
-        # Shared backbone over both images in one batch of 2B.
-        both = torch.cat([image0, image1], dim=0).to(cfg.dtype).permute(
-            0, 3, 1, 2)
-        with span("matcher/backbone", dev):
-            coarse, fine = self.backbone(both)
-        coarse = coarse.permute(0, 2, 3, 1)
-        fine = fine.permute(0, 2, 3, 1)
-        coarse = add_position_encoding(coarse).reshape(2 * b, h8 * w8, -1)
-        c0, c1 = coarse[:b], coarse[b:]
+        out[, conf][, (delta, std)], as in JAX. Frames run through the
+        shared backbone in one batch of 2B (`encode_views`), then
+        `match_views` matches the two sides."""
+        if not isinstance(image0, ViewFeatures):
+            b = image0.shape[0]
+            views = self.encode_views(torch.cat([image0, image1], dim=0))
+            image0 = ViewFeatures(views.coarse[:b], views.fine[:b])
+            image1 = ViewFeatures(views.coarse[b:], views.fine[b:])
+        return self.match_views(image0, image1, valid_hw0, valid_hw1,
+                                return_conf, fine_at)
 
-        mask0 = grid_valid(valid_hw0, b, h8, w8, cfg.border, image0.device)
-        mask1 = grid_valid(valid_hw1, b, h8, w8, cfg.border, image0.device)
+    def encode_views(self, images) -> ViewFeatures:
+        """The per-image stage: (N, H, W, 1) frames in [0, 1] to their
+        ViewFeatures. Nothing in it reads another image (the backbone's
+        BatchNorm is in inference mode), so a view's features serve every
+        pair it belongs to."""
+        x = images.to(self.cfg.dtype).permute(0, 3, 1, 2)
+        with span("matcher/backbone", images.device):
+            coarse, fine = self.backbone(x)
+        n, _, h8, w8 = coarse.shape
+        coarse = add_position_encoding(coarse.permute(0, 2, 3, 1))
+        return ViewFeatures(coarse.reshape(n, h8 * w8, -1),
+                            fine.permute(0, 2, 3, 1))
+
+    def match_views(self, view0: ViewFeatures, view1: ViewFeatures,
+                    valid_hw0=None, valid_hw1=None,
+                    return_conf: bool = False, fine_at=None):
+        """The pair stage: the masks, the coarse transformer, the
+        dual-softmax and the fine stage over the two sides' ViewFeatures
+        (B views each); arguments and outputs as `forward`'s."""
+        cfg = self.cfg
+        c0, c1 = view0.coarse, view1.coarse
+        dev = c0.device
+        b = c0.shape[0]
+        h8, w8 = view0.fine.shape[1] // 4, view0.fine.shape[2] // 4
+
+        mask0 = grid_valid(valid_hw0, b, h8, w8, cfg.border, dev)
+        mask1 = grid_valid(valid_hw1, b, h8, w8, cfg.border, dev)
         with span("matcher/coarse_transformer", dev):
             c0, c1 = self.coarse_transformer(c0, c1, mask0, mask1)
 
@@ -217,8 +249,8 @@ class DetectorFreeMatcher(nn.Module):
         xy1 = cells_to_xy(matches.idx1, w8)
         if cfg.fine_enabled:
             with span("matcher/fine", dev):
-                delta, _std = self.fine_match(fine[:b], fine[b:], matches,
-                                              w8)
+                delta, _std = self.fine_match(view0.fine, view1.fine,
+                                              matches, w8)
             xy1 = xy1 + delta
         out = MatchOutput(xy0, xy1, matches.conf, matches.valid)
         extra = (conf,) if return_conf else ()
@@ -230,5 +262,5 @@ class DetectorFreeMatcher(nn.Module):
                 t_idx0, t_idx1, torch.ones(t_idx0.shape, device=t_idx0.device),
                 torch.ones(t_idx0.shape, dtype=torch.bool,
                            device=t_idx0.device))
-            extra += (self.fine_match(fine[:b], fine[b:], teacher, w8),)
+            extra += (self.fine_match(view0.fine, view1.fine, teacher, w8),)
         return (out,) + extra if extra else out

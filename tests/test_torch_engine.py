@@ -182,6 +182,163 @@ def test_fused_engine_matches_dense_engine(engine_outputs):
         assert _iou(_rows(dense[p]), _rows(fused[p])) >= 0.95, p
 
 
+def _pair_forward(model, images, pair, ratio=4):
+    """One pair through the matcher's `forward` (batch 1), rescaled and
+    rounded as the engine returns it: (kpts0, kpts1, conf)."""
+    import torch
+
+    a, b = (images[n] for n in pair)
+    x0, x1 = (torch.from_numpy(im.data)[None, ..., None] for im in (a, b))
+    hw0, hw1 = (torch.tensor([[im.valid_size[1], im.valid_size[0]]])
+                for im in (a, b))
+    with torch.no_grad():
+        r = model(x0, x1, hw0, hw1)
+    v = r.valid[0].numpy()
+    k0 = r.coords0[0].numpy()[v] * a.scale[None, :]
+    k1 = r.coords1[0].numpy()[v] * b.scale[None, :]
+    if ratio:
+        k0, k1 = (np.round(k / ratio) * ratio for k in (k0, k1))
+    return k0, k1, r.conf[0].numpy()[v]
+
+
+def _profiled(fn):
+    """fn() under a torch profiler: its result and the counters recorded."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from detectorfreesfm_tpu_torch.utils.profiler import snapshot
+
+    with profile(activities=[ProfilerActivity.CPU]):
+        out = fn()
+    return out, snapshot()["counters"]
+
+
+def _four_views(size):
+    """generate_scene(seed=1)'s 4 views at `size` px and their 6 pairs."""
+    from detectorfreesfm_tpu_torch.match.pairs import exhaustive_pairs
+
+    images = _scene(size, 4, seed=1)[0]
+    names = [f"view_{i}" for i in range(4)]
+    return _port_images(images, names), exhaustive_pairs(names)
+
+
+@pytest.fixture(scope="module")
+def four_views():
+    return _four_views(256)
+
+
+@pytest.fixture(scope="module")
+def four_small_views():
+    return _four_views(128)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_view_store_equals_the_per_pair_forward(four_views, dtype):
+    """4 views, all 6 pairs, batch 2, coarse_fine: the engine runs each
+    view once through the per-image stage (4 frames, 12 sides read from
+    the store) and its matches equal those of the matcher's `forward` run
+    pair by pair (IoU >= 0.95); each view's stored features equal those of
+    the per-image stage inside each pair's `forward` within 1e-5."""
+    import torch
+
+    from detectorfreesfm_tpu_torch.match.engine import (EngineConfig,
+                                                        PairMatchingEngine)
+    from detectorfreesfm_tpu_torch.utils.checkpoint import load_matcher_params
+
+    images, pairs = four_views
+    # 1024 slots hold every mutual match of a 32 x 32 grid.
+    cfg = EngineConfig(img_resize=256, fine_enabled=True,
+                       round_matches_ratio=4, batch_size=2,
+                       compute_dtype=dtype, max_matches=1024)
+    engine = PairMatchingEngine(
+        cfg, load_matcher_params(WEIGHTS, cfg.matcher_config()),
+        device="cpu")
+    stores, encoded = [], []
+    build, encode = engine._build_store, engine.model.encode_views
+    engine._build_store = lambda *a: stores.append(build(*a)) or stores[-1]
+    engine.model.encode_views = lambda x: encoded.append(encode(x)) or \
+        encoded[-1]
+    out, counters = _profiled(lambda: engine.match_pairs(pairs, images))
+    assert counters["engine/views"] == 4
+    assert counters["engine/view_uses"] == 2 * len(pairs) == 12
+    assert list(out) == pairs
+    (rows, feats), = stores.pop()
+    assert list(rows) == [n for n in images]
+    encoded.clear()
+    for p in pairs:
+        k0, k1, _ = _pair_forward(engine.model, images, p)
+        ref = {tuple(r) for r in np.concatenate([k0, k1], 1).tolist()}
+        assert len(ref) > 20, p
+        assert _iou(ref, _rows(out[p])) >= 0.95, p
+        (want,) = encoded
+        encoded.clear()
+        for side, name in enumerate(p):
+            for got, f in zip(feats, want):
+                torch.testing.assert_close(got[rows[name]].float(),
+                                           f[side].float(), atol=1e-5,
+                                           rtol=0)
+
+
+def test_view_store_in_groups_equals_one_group(four_small_views,
+                                               monkeypatch):
+    """At 128 px, a store that holds 3 views (batch 1) takes the 6 pairs,
+    given out of order, in 4 groups of consecutive steps (10 frames
+    through the per-image stage instead of 4): the matches equal the
+    one-group run's exactly and come back in the call's pair order."""
+    from detectorfreesfm_tpu_torch.match import engine as engine_mod
+    from detectorfreesfm_tpu_torch.utils.checkpoint import load_matcher_params
+
+    images, pairs = four_small_views
+    order = [pairs[i] for i in (5, 0, 4, 1, 3, 2)]
+    cfg = engine_mod.EngineConfig(img_resize=128, fine_enabled=True,
+                                  round_matches_ratio=4, batch_size=1,
+                                  max_matches=256)  # a 16 x 16 grid
+    engine = engine_mod.PairMatchingEngine(
+        cfg, load_matcher_params(WEIGHTS, cfg.matcher_config()),
+        device="cpu")
+    one, counters = _profiled(lambda: engine.match_pairs(order, images))
+    assert counters["engine/views"] == 4
+    monkeypatch.setattr(engine_mod, "CPU_STORE_VIEWS", 3)
+    steps = [([p], 1) for p in order]
+    assert [first for first, _ in engine._view_groups(steps, images)] == [
+        0, 1, 3, 5]
+    got, counters = _profiled(lambda: engine.match_pairs(order, images))
+    assert counters["engine/views"] == 10
+    assert counters["engine/view_uses"] == 12
+    assert list(got) == list(one) == order
+    for p in order:
+        assert len(one[p]["conf"]) > 20
+        for k in ("kpts0", "kpts1", "conf"):
+            np.testing.assert_array_equal(got[p][k], one[p][k])
+
+
+@pytest.mark.parametrize("arch", ["matchformer", "aspan"])
+def test_matchers_without_a_per_image_stage_run_whole(four_small_views,
+                                                      arch):
+    """MatchFormer (its encoder attends across the two images) and ASpan
+    keep the per-pair path: no view store is counted, and the engine's
+    matches of 2 pairs at 128 px equal the matcher's `forward` on each
+    pair (batch 1)."""
+    from detectorfreesfm_tpu_torch.match.engine import (EngineConfig,
+                                                        PairMatchingEngine)
+    from detectorfreesfm_tpu_torch.utils.checkpoint import load_arch_params
+
+    images, pairs = four_small_views
+    pairs = pairs[:2]
+    params = (load_arch_params(ALT_WEIGHTS[arch], arch)
+              if arch in ALT_WEIGHTS else None)
+    engine = PairMatchingEngine(EngineConfig(matcher=arch, img_resize=128),
+                                params, device="cpu")
+    assert not hasattr(engine.model, "encode_views")
+    out, counters = _profiled(lambda: engine.match_pairs(pairs, images))
+    assert counters["engine/pairs"] == 2
+    assert "engine/views" not in counters
+    assert "engine/view_uses" not in counters
+    for p in pairs:
+        for got, want in zip((out[p][k] for k in ("kpts0", "kpts1", "conf")),
+                             _pair_forward(engine.model, images, p, None)):
+            np.testing.assert_array_equal(got, want)
+
+
 _IMPORT_PROBE = r"""
 import sys, numpy as np, torch
 torch.set_num_threads(1)  # beside the suite's other workers

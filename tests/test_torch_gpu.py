@@ -206,6 +206,58 @@ def test_bf16_fused_matches_dense_at_832px():
     assert len(rows[0] & rows[1]) / len(rows[0] | rows[1]) >= 0.95
 
 
+@pytest.mark.cuda
+def test_view_store_on_the_card_equals_the_per_pair_forward():
+    """6 views at 832 px, fp32, coarse_fine, 4 px rounding, batch 2: the
+    pairs of views 0-3, then in a second call those of views 2-5, give the
+    match rows of the matcher's `forward` run pair by pair (IoU >= 0.95).
+    Under a profiler the second call runs its 4 views once (12 sides read
+    from the store) and records no new shape, so no cuDNN timing falls
+    inside it."""
+    _needs_cuda()
+    from torch.profiler import ProfilerActivity, profile
+
+    from detectorfreesfm_tpu_torch.data.images import from_array
+    from detectorfreesfm_tpu_torch.data.synthetic import (SyntheticConfig,
+                                                          generate_scene)
+    from detectorfreesfm_tpu_torch.match.engine import (EngineConfig,
+                                                        PairMatchingEngine)
+    from detectorfreesfm_tpu_torch.match.pairs import exhaustive_pairs
+    from detectorfreesfm_tpu_torch.utils.checkpoint import load_matcher_params
+    from detectorfreesfm_tpu_torch.utils.profiler import snapshot
+
+    imgs = generate_scene(2, SyntheticConfig(size=832, n_views=6))[0]
+    names = [f"v{i}" for i in range(6)]
+    images = {n: from_array(imgs[i]) for i, n in enumerate(names)}
+    first, second = exhaustive_pairs(names[:4]), exhaustive_pairs(names[2:])
+    cfg = EngineConfig(img_resize=832, fine_enabled=True,
+                       round_matches_ratio=4, batch_size=2)
+    engine = PairMatchingEngine(
+        cfg, load_matcher_params(WEIGHTS, cfg.matcher_config()))
+    out = engine.match_pairs(first, images)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        out.update(engine.match_pairs(second, images))
+    counters = snapshot()["counters"]
+    assert counters["engine/new_shapes"] == 0
+    assert (counters["engine/views"], counters["engine/view_uses"]) == (4, 12)
+    dev = engine.device
+    for a, b in first + second:
+        x0, x1 = (torch.from_numpy(images[n].data)[None, ..., None].to(dev)
+                  for n in (a, b))
+        hw = torch.tensor([[832, 832]], device=dev)
+        with torch.no_grad():
+            r = engine.model(x0, x1, hw, hw)
+        v = r.valid[0].cpu().numpy()
+        ref = np.round(np.concatenate([r.coords0[0].cpu().numpy()[v],
+                                       r.coords1[0].cpu().numpy()[v]], 1)
+                       / 4) * 4
+        rows = [{tuple(x) for x in ref.tolist()},
+                {tuple(x) for x in np.concatenate(
+                    [out[(a, b)]["kpts0"], out[(a, b)]["kpts1"]], 1).tolist()}]
+        assert len(rows[0]) > 100, (a, b)
+        assert len(rows[0] & rows[1]) / len(rows[0] | rows[1]) >= 0.95, (a, b)
+
+
 # --- the geometry slice: the port on the card against the port on the CPU --
 
 

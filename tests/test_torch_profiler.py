@@ -225,9 +225,12 @@ def test_spans_record_nothing_without_a_profiler(monkeypatch):
 
 def test_engine_spans_and_counters_in_a_session():
     """3 pairs at batch 2: two steps, each staged, launched, waited for
-    and unpacked once; 3 real pairs and 1 repeat; the matcher's spans
-    once a step, with no device time off the card; the existing scope
-    once. The engine's first step shape counts as new, a repeat does
+    and unpacked once, and one view store, staged and launched once: the
+    3 views padded to 4 frames, in two per-image batches; 3 real pairs, 1
+    repeat and 6 sides read from the store; the matcher's spans twice
+    (the backbone once a per-image batch, the others once a step), with no
+    device time off the card; the existing scope once. The engine's first
+    step shape and first per-image shape count as new, a repeat does
     not."""
     from detectorfreesfm_tpu_torch.match.engine import _SHAPES_RUN
 
@@ -240,14 +243,16 @@ def test_engine_spans_and_counters_in_a_session():
         engine.match_pairs(pairs, images)
     snap = TPR.snapshot()
     spans, counters = snap["spans"], snap["counters"]
+    calls = {"engine/stage": 3, "engine/launch": 3}
     for name in ENGINE_STEPS + MATCHER_SPANS:
-        assert spans[name]["calls"] == 2, name
+        assert spans[name]["calls"] == calls.get(name, 2), name
         assert spans[name]["host_ms"] > 0 and \
             spans[name]["device_ms"] is None, name
     assert "matcher/fine" not in spans          # coarse_only
     assert spans["engine/match_forward"]["calls"] == 1
     assert counters == {"engine/pairs": 3, "engine/pad_pairs": 1,
-                        "engine/new_shapes": 1}
+                        "engine/new_shapes": 2, "engine/views": 4,
+                        "engine/view_uses": 6}
     launch = spans["engine/launch"]["host_ms"]
     assert sum(spans[n]["host_ms"] for n in MATCHER_SPANS) <= launch
 
@@ -279,8 +284,11 @@ def test_a_session_holds_only_its_own_spans():
         engine.match_pairs(two[:1], images)
     snap = TPR.snapshot()
     assert snap["counters"] == {"engine/pairs": 1, "engine/pad_pairs": 1,
-                                "engine/new_shapes": 0}
-    assert {snap["spans"][n]["calls"] for n in ENGINE_STEPS} == {1}
+                                "engine/new_shapes": 0, "engine/views": 2,
+                                "engine/view_uses": 2}
+    assert {n: snap["spans"][n]["calls"] for n in ENGINE_STEPS} == {
+        "engine/stage": 2, "engine/launch": 2, "engine/wait": 1,
+        "engine/unpack": 1}
 
 
 # --- trace_to: the engine and the refinement in one trace -------------------
