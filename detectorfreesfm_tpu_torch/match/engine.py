@@ -14,18 +14,20 @@ with validity masks; the conversion to original pixels, the optional
 rounding to a pixel grid and the scene-level keypoint merge
 (ops/grid_merge.py) run on the host, in pair order.
 
-A matcher with a per-image stage (`encode_views`, the LoFTR family) runs
-it once per view of a call, not once per pair side: each row computes the
-distinct views that its blocks read, in batches of `batch_size` frames
-(the last padded with repeats), into a view store, and each step gathers
-its sides' ViewFeatures from the store, which the matcher's forward
-takes in place of frames (the pair stage alone, `match_views`). The
-store lives for one call. Where a call's views do not fit half the card's
-free memory (CPU_STORE_VIEWS off the card), consecutive steps are taken
-in groups whose views fit, the store freed between groups; the steps and
-the results keep the call's order either way. The other matchers (ASpan,
-and MatchFormer, whose encoder attends across the two images) run whole
-on each step's stacked frames.
+A matcher with a per-image stage (`encode_views`: the LoFTR family, whose
+views hold the coarse and the fine maps, and ASpan, whose views hold the
+coarse map alone) runs it once per view of a call, not once per pair
+side: each row computes the distinct views that its blocks read, in
+batches of `batch_size` frames (the last padded with repeats), into a
+view store, and each step gathers its sides' views from the store, which
+the matcher's forward takes in place of frames (the pair stage alone,
+`match_views`). The store lives for one call and sizes itself by the
+matcher's bytes a view (`view_bytes`). Where a call's views do not fit
+half the card's free memory (CPU_STORE_VIEWS off the card), consecutive
+steps are taken in groups whose views fit, the store freed between
+groups; the steps and the results keep the call's order either way.
+MatchFormer, whose encoder attends across the two images, runs whole on
+each step's stacked frames.
 
 Under a torch profiler (utils/profiler.py) each step records the spans
 `engine/stage` (the step's frames, or its sides' store rows, and sizes,
@@ -53,7 +55,7 @@ import torch
 from ..data.images import LoadedImage, load_gray
 from ..device import compute_dtype
 from ..models import LOFTR_FAMILY, MATCHER_NAMES, build_matcher
-from ..models.loftr import DetectorFreeMatcher, MatcherConfig, ViewFeatures
+from ..models.loftr import DetectorFreeMatcher, MatcherConfig
 from ..ops.grid_merge import merge_matches_to_keypoints
 from ..parallel.mesh import mesh_of, replicate_module, shard_leading_axis
 from ..utils.profiler import PassThroughProfiler, count, span
@@ -67,9 +69,10 @@ _SHAPES_RUN: set = set()
 CPU_STORE_VIEWS = 64
 
 
-def _take(feats: ViewFeatures, rows) -> ViewFeatures:
-    """The store's features at `rows`."""
-    return ViewFeatures(*(f.index_select(0, rows) for f in feats))
+def _take(feats, rows):
+    """The store's features (the matcher's views, a NamedTuple of
+    tensors) at `rows`."""
+    return type(feats)(*(f.index_select(0, rows) for f in feats))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -265,12 +268,11 @@ class PairMatchingEngine:
         """Views each "data" row's store may hold, a multiple of
         `batch_size` and at least one step's 2 x `batch_size`: half the
         card's free memory (the caching allocator's spare blocks count as
-        free), split between the rows on that card, over a view's bytes;
-        CPU_STORE_VIEWS off the card."""
-        mc, bs = self.model.cfg, self.cfg.batch_size
-        h, w = frame
-        view_bytes = ((h // 8) * (w // 8) * mc.d_coarse
-                      + (h // 2) * (w // 2) * mc.d_fine) * mc.dtype.itemsize
+        free), split between the rows on that card, over the bytes of what
+        a view holds (the matcher's `view_bytes`); CPU_STORE_VIEWS off the
+        card."""
+        bs = self.cfg.batch_size
+        view_bytes = self.model.view_bytes(*frame)
         devs = self.mesh.data_devices
         caps = []
         for dev in devs:
@@ -304,10 +306,10 @@ class PairMatchingEngine:
         return groups
 
     def _build_store(self, rows, images) -> list:
-        """Per "data" row: ({view: row}, ViewFeatures of the rows) of the
-        row's views, run through its device's per-image stage in batches
-        of exactly `batch_size` frames (the last padded with repeats), so
-        that each frame size has one per-image shape."""
+        """Per "data" row: ({view: row}, the matcher's views of the rows)
+        of the row's views, run through its device's per-image stage in
+        batches of exactly `batch_size` frames (the last padded with
+        repeats), so that each frame size has one per-image shape."""
         bs = self.cfg.batch_size
         store = []
         for model, dev, held in zip(self.models, self.mesh.data_devices,
@@ -332,7 +334,7 @@ class PairMatchingEngine:
                     for f, p in zip(feats, part):
                         f[k:k + bs] = p
             store.append(({v: r for r, v in enumerate(held)},
-                          ViewFeatures(*feats)))
+                          type(part)(*feats)))
         return store
 
     def match_scene(self, pairs: Sequence[Tuple[str, str]],

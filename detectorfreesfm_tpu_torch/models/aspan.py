@@ -8,7 +8,12 @@ the expected position under a low-rank global softmax, plus a learned
 residual), and cross-attention restricted to the (2r+1)^2 cells around
 each query's flow target. Matching is the dense dual-softmax; the fused
 kernels serve the LoFTR family only, as in JAX. Same I/O contract as
-DetectorFreeMatcher (models/loftr.py), without the fine stage.
+DetectorFreeMatcher (models/loftr.py), without the fine stage, and the
+same two stages: `encode_views` (per image: the backbone's coarse path
+and the position encoding, into CoarseViews) and `match_views` (per
+pair: the masks, the rounds and the dual-softmax); `forward` is their
+composition and takes a pair's CoarseViews in place of its frames, so
+the engine computes each view once per call (match/engine.py).
 
 The window is discrete: the flow target is clipped to the grid, the
 window's cells rounded (half to even, in both packages) and clipped again,
@@ -19,17 +24,30 @@ backbone, the projections and the residual stream in bf16; the flow
 head's similarity, softmax and expectation, and the window attention's
 logits and softmax in fp32 (JAX's `preferred_element_type=float32`), the
 softmax rounded to bf16 before it weights the values.
+
+Under a torch profiler (utils/profiler.py) the matcher records the spans
+`matcher/backbone` (the module's call), and per round
+`matcher/self_attention` (both self layers), `matcher/flow_head` (both
+flow heads) and `matcher/span_attention` (both window cross-attentions:
+window cells, gather, logits, softmax, values, merge and feed-forward),
+then `matcher/dual_softmax` (the dense confidence and the top-K), with
+their device time; and the counters `aspan/window_queries` (queries x
+rounds x directions) and `aspan/window_clamped` (those whose window the
+grid's edge clipped, so that it attends repeated cells), the latter
+summed on the card.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+from typing import NamedTuple
 
 import torch
 from torch import nn
 
 from ..device import set_backends
+from ..utils.profiler import count, span
 from .backbone import ResNetFPN_8_2
 from .layers import Linear
 from .loftr import MatcherConfig, dense_match, grid_valid
@@ -41,6 +59,12 @@ from .transformer import EncoderLayer
 class ASpanConfig(MatcherConfig):
     span_radius: int = 2          # (2r+1)^2 attended cells around the target
     n_flow_layers: int = 4        # (self, flow, cross) rounds
+
+
+class CoarseViews(NamedTuple):
+    """What the coarse-only per-image stage gives for N views."""
+
+    coarse: torch.Tensor   # (N, h8, w8, C) position-encoded, 1/8 grid
 
 
 def _grid_xy(l: int, w: int, device):
@@ -98,6 +122,12 @@ class FlowCrossAttention(EncoderLayer):
                             dtype=torch.float32)
         gx = torch.round(cx[..., None, None] + offs).clamp(0, w - 1)
         gy = torch.round(cy[..., None, None] + offs[:, None]).clamp(0, h - 1)
+        count("aspan/window_queries", b * l)
+        # Rounding is monotone: a window leaves the grid where its first
+        # or last cell does.
+        count("aspan/window_clamped", lambda: (
+            (torch.round(cx - r) < 0) | (torch.round(cx + r) > w - 1) |
+            (torch.round(cy - r) < 0) | (torch.round(cy + r) > h - 1)).sum())
         return (gy * w + gx).long().reshape(b, l, -1)
 
     def forward(self, x, source, hw, flow):
@@ -143,27 +173,58 @@ class ASpanMatcher(nn.Module):
 
     def forward(self, image0, image1, valid_hw0=None, valid_hw1=None,
                 return_conf: bool = False):
-        """image0/1: (B, H, W, 1) in [0, 1]; valid_hw: (B, 2) int (h, w)
-        live region at full res, optional. Returns the MatchOutput, and
-        the dense (B, L, S) confidence too with `return_conf`."""
+        """image0/1: (B, H, W, 1) in [0, 1], or the CoarseViews of B views
+        each (`encode_views`); valid_hw: (B, 2) int (h, w) live region at
+        full res, optional. Returns the MatchOutput, and the dense
+        (B, L, S) confidence too with `return_conf`. Frames run through
+        the backbone in one batch of 2B (`encode_views`), then
+        `match_views` matches the two sides."""
+        if not isinstance(image0, CoarseViews):
+            b = image0.shape[0]
+            views = self.encode_views(torch.cat([image0, image1], dim=0))
+            image0 = CoarseViews(views.coarse[:b])
+            image1 = CoarseViews(views.coarse[b:])
+        return self.match_views(image0, image1, valid_hw0, valid_hw1,
+                                return_conf)
+
+    def encode_views(self, images) -> CoarseViews:
+        """The per-image stage: (N, H, W, 1) frames in [0, 1] to their
+        CoarseViews, the backbone's coarse path (its FPN path is skipped)
+        and the position encoding. Nothing in it reads another image."""
+        x = images.to(self.cfg.dtype).permute(0, 3, 1, 2)
+        with span("matcher/backbone", images.device):
+            coarse, _ = self.backbone(x, fine=False)
+        return CoarseViews(add_position_encoding(coarse.permute(0, 2, 3, 1)))
+
+    def view_bytes(self, h: int, w: int) -> int:
+        """Bytes of one view's CoarseViews at an h x w frame."""
         cfg = self.cfg
-        b, h, wd = image0.shape[:3]
-        h8, w8 = h // 8, wd // 8
-        both = torch.cat([image0, image1], dim=0).to(cfg.dtype).permute(
-            0, 3, 1, 2)
-        coarse, _ = self.backbone(both, fine=False)
-        coarse = add_position_encoding(coarse.permute(0, 2, 3, 1)).reshape(
-            2 * b, h8 * w8, cfg.d_coarse)
-        c0, c1 = coarse[:b], coarse[b:]
-        mask0 = grid_valid(valid_hw0, b, h8, w8, cfg.border, image0.device)
-        mask1 = grid_valid(valid_hw1, b, h8, w8, cfg.border, image0.device)
+        return (h // 8) * (w // 8) * cfg.d_coarse * cfg.dtype.itemsize
+
+    def match_views(self, view0: CoarseViews, view1: CoarseViews,
+                    valid_hw0=None, valid_hw1=None,
+                    return_conf: bool = False):
+        """The pair stage: the masks, the rounds and the dense
+        dual-softmax over the two sides' CoarseViews (B views each);
+        arguments and outputs as `forward`'s."""
+        cfg = self.cfg
+        b, h8, w8, d = view0.coarse.shape
+        c0 = view0.coarse.reshape(b, h8 * w8, d)
+        c1 = view1.coarse.reshape(b, h8 * w8, d)
+        dev = c0.device
+        mask0 = grid_valid(valid_hw0, b, h8, w8, cfg.border, dev)
+        mask1 = grid_valid(valid_hw1, b, h8, w8, cfg.border, dev)
         hw = (h8, w8)
         for i in range(cfg.n_flow_layers):
             layer = lambda name: getattr(self, f"{name}_{i}")  # noqa: E731
-            c0 = layer("self0")(c0, c0, mask0, mask0)
-            c1 = layer("self1")(c1, c1, mask1, mask1)
-            flow0 = layer("flow0")(c0, c1, hw)
-            flow1 = layer("flow1")(c1, c0, hw)
-            c0, c1 = (layer("cross0")(c0, c1, hw, flow0),
-                      layer("cross1")(c1, c0, hw, flow1))
-        return dense_match(c0, c1, mask0, mask1, cfg, w8, return_conf)
+            with span("matcher/self_attention", dev):
+                c0 = layer("self0")(c0, c0, mask0, mask0)
+                c1 = layer("self1")(c1, c1, mask1, mask1)
+            with span("matcher/flow_head", dev):
+                flow0 = layer("flow0")(c0, c1, hw)
+                flow1 = layer("flow1")(c1, c0, hw)
+            with span("matcher/span_attention", dev):
+                c0, c1 = (layer("cross0")(c0, c1, hw, flow0),
+                          layer("cross1")(c1, c0, hw, flow1))
+        with span("matcher/dual_softmax", dev):
+            return dense_match(c0, c1, mask0, mask1, cfg, w8, return_conf)

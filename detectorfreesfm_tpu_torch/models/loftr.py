@@ -214,6 +214,12 @@ class DetectorFreeMatcher(nn.Module):
         return ViewFeatures(coarse.reshape(n, h8 * w8, -1),
                             fine.permute(0, 2, 3, 1))
 
+    def view_bytes(self, h: int, w: int) -> int:
+        """Bytes of one view's ViewFeatures at an h x w frame."""
+        cfg = self.cfg
+        return ((h // 8) * (w // 8) * cfg.d_coarse
+                + (h // 2) * (w // 2) * cfg.d_fine) * cfg.dtype.itemsize
+
     def match_views(self, view0: ViewFeatures, view1: ViewFeatures,
                     valid_hw0=None, valid_hw1=None,
                     return_conf: bool = False, fine_at=None):

@@ -1,0 +1,24 @@
+"""Device ms of the ASpan matcher's flow heads per pair over the traced
+stretch: both directions' projections, L x L similarity, softmax,
+expectation and residual, every round (models/aspan.py). The program's
+own `matcher/flow_head` span (utils/profiler.py) over its `engine/pairs`
+counter, both of the traced session; nothing where the program records
+no such span or runs off the card."""
+
+UNIT = "ms/pair"
+LAYER = "flow head"
+SOURCE = "program_span"
+MOVES = "pairs_per_s"
+
+
+def read(ctx):
+    try:
+        from detectorfreesfm_tpu_torch.utils.profiler import snapshot
+    except ImportError:
+        return None
+    snap = snapshot()
+    ms = snap["spans"].get("matcher/flow_head", {}).get("device_ms")
+    pairs = snap["counters"].get("engine/pairs")
+    if ms is None or not pairs:
+        return None
+    return ms / pairs

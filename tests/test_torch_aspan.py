@@ -255,6 +255,29 @@ def test_aspan_matcher_matches_jax():
     check_matcher_runs(runs, iou_floor_bf16=0.9, n_min=40)
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_encode_then_match_views_equals_forward(dtype):
+    """The per-image stage (`encode_views`) of both frames, then the pair
+    stage (`match_views`) on their CoarseViews, give `forward`'s matches
+    and dense confidence bit for bit (bundled weights, a 96 px pair with
+    a narrower live region)."""
+    img0, img1 = (torch.from_numpy(x) for x in _scene_pair(96))
+    hw = torch.tensor([[96, 88]])
+    m = build_matcher("aspan", compute_dtype=dtype).eval()
+    m.load_state_dict(checkpoint.load_arch_params(ASPAN, "aspan"))
+    with torch.no_grad():
+        want, want_conf = m(img0, img1, hw, hw, return_conf=True)
+        views = m.encode_views(torch.cat([img0, img1]))
+        assert views.coarse.shape == (2, 12, 12, 256)
+        assert views.coarse.dtype == TORCH_DT[dtype]
+        got, conf = m.match_views(aspan.CoarseViews(views.coarse[:1]),
+                                  aspan.CoarseViews(views.coarse[1:]), hw,
+                                  hw, return_conf=True)
+    assert int(want.valid.sum()) > 10
+    for g, w in zip(got + (conf,), want + (want_conf,)):
+        assert torch.equal(g, w)
+
+
 # --- the checkpoint loader and build_matcher ---------------------------------
 
 

@@ -314,10 +314,13 @@ def test_view_store_in_groups_equals_one_group(four_small_views,
 @pytest.mark.parametrize("arch", ["matchformer", "aspan"])
 def test_matchers_without_a_per_image_stage_run_whole(four_small_views,
                                                       arch):
-    """MatchFormer (its encoder attends across the two images) and ASpan
-    keep the per-pair path: no view store is counted, and the engine's
-    matches of 2 pairs at 128 px equal the matcher's `forward` on each
-    pair (batch 1)."""
+    """MatchFormer (its encoder attends across the two images) keeps the
+    per-pair path: no view store is counted. ASpan, whose per-image stage
+    is its backbone's coarse path, takes the view store: the 3 views of 2
+    pairs through the per-image stage once each (batch 1), 4 sides read
+    from the store, and no fine map in it. Either way the engine's
+    matches of the 2 pairs at 128 px equal the matcher's `forward` on
+    each pair (batch 1) bit for bit."""
     from detectorfreesfm_tpu_torch.match.engine import (EngineConfig,
                                                         PairMatchingEngine)
     from detectorfreesfm_tpu_torch.utils.checkpoint import load_arch_params
@@ -328,11 +331,26 @@ def test_matchers_without_a_per_image_stage_run_whole(four_small_views,
               if arch in ALT_WEIGHTS else None)
     engine = PairMatchingEngine(EngineConfig(matcher=arch, img_resize=128),
                                 params, device="cpu")
-    assert not hasattr(engine.model, "encode_views")
+    stores = []
+    if arch == "aspan":
+        build = engine._build_store
+        engine._build_store = lambda *a: stores.append(build(*a)) or \
+            stores[-1]
+    else:
+        assert not hasattr(engine.model, "encode_views")
     out, counters = _profiled(lambda: engine.match_pairs(pairs, images))
     assert counters["engine/pairs"] == 2
-    assert "engine/views" not in counters
-    assert "engine/view_uses" not in counters
+    if arch == "aspan":
+        assert counters["engine/views"] == 3
+        assert counters["engine/view_uses"] == 4
+        ((rows, feats),), = stores
+        assert list(rows) == ["view_0", "view_1", "view_2"]
+        assert type(feats).__name__ == "CoarseViews"
+        assert [tuple(f.shape) for f in feats] == [(3, 16, 16, 256)]
+        assert engine.model.view_bytes(128, 128) == 16 * 16 * 256 * 4
+    else:
+        assert "engine/views" not in counters
+        assert "engine/view_uses" not in counters
     for p in pairs:
         for got, want in zip((out[p][k] for k in ("kpts0", "kpts1", "conf")),
                              _pair_forward(engine.model, images, p, None)):

@@ -270,6 +270,42 @@ def test_refiner_counts_its_slots():
         "refiner/s2dnet": 1, "refiner/transformer": 1}
 
 
+ASPAN_SPANS = ("matcher/self_attention", "matcher/flow_head",
+               "matcher/span_attention")
+
+
+def test_aspan_spans_and_counters_only_in_a_session():
+    """A 64 px ASpan pair (random weights, an 8 x 8 grid): under a
+    profiler each of the 4 rounds spans its self layers, flow heads and
+    window cross-attentions once, the backbone and the dual-softmax are
+    spanned once, and the counters hold 2 directions x 4 rounds x 64
+    queries, of which those whose 5 x 5 window crosses the grid's edge
+    are clamped (most, on so small a grid; cells 2 from every edge
+    cannot be unless their flow moves them). With no profiler the same
+    forward records nothing."""
+    from detectorfreesfm_tpu_torch.models import build_matcher
+
+    torch.manual_seed(0)
+    model = build_matcher("aspan").eval()
+    x0, x1 = (torch.from_numpy(im)[None, ..., None]
+              for im in _scene()[1][:2])
+    TPR.reset()
+    with torch.no_grad():
+        model(x0, x1)
+    assert TPR.snapshot() == {"spans": {}, "counters": {}}
+    with _session(), torch.no_grad():
+        model(x0, x1)
+    snap = TPR.snapshot()
+    assert {n: s["calls"] for n, s in snap["spans"].items()} == dict(
+        {n: 4 for n in ASPAN_SPANS}, **{"matcher/backbone": 1,
+                                        "matcher/dual_softmax": 1})
+    assert all(s["device_ms"] is None for s in snap["spans"].values())
+    counters = snap["counters"]
+    assert set(counters) == {"aspan/window_queries", "aspan/window_clamped"}
+    assert counters["aspan/window_queries"] == 2 * 4 * 64
+    assert 0 < counters["aspan/window_clamped"] < 2 * 4 * 64
+
+
 def test_a_session_holds_only_its_own_spans():
     """Engine calls in two profiler sessions, and between them: the second
     session's snapshot holds its own call alone."""
