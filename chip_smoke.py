@@ -8,11 +8,17 @@ standard library, numpy, torch and the port. Phases, one JSON line each:
 
   device   card name and power limit
   build    nvcc of the port's CUDA sources into build/torch_kernels/, and
-           the count of tensor-core (HGMMA) instructions in the library
+           the count of tensor-core (HGMMA) instructions in the library;
+           the flow expectation's library holds FFMAs and no HMMA or
+           HGMMA (fp32 on the CUDA cores)
   kernels  each kernel against its plain torch version at a ragged shape,
            the main path's (B=2, L=S=10816, C=256) and the 1600 px one
            (B=1, L=S=40000), timed at the last two; planted ties across
-           row and column tiles resolve to the first index
+           row and column tiles resolve to the first index; the flow
+           expectation (ASpan's flow head) at a ragged 13 x 17 grid and at
+           the ASpan cell's shape (B = 8, 104 x 104), timed there beside
+           its fp32 FFMA bound, its plain version and
+           scaled_dot_product_attention of the same function
   weights  the bundled r5 matcher through the port's converter
   main     6 exhaustive pairs of a 832 px synthetic scene, coarse_fine,
            through PairMatchingEngine with the fused kernels, held to the
@@ -116,9 +122,11 @@ standard library, numpy, torch and the port. Phases, one JSON line each:
            the fresh tolerance), checkpoints read back strictly; the
            trained MatchFormer served by `reconstruct --matcher-arch
            matchformer --refine-iters 0` (completion only); 0 launches of
-           either pass on every run; reported: warm pairs/s, device ms of
-           a batch, step seconds and peak memory; full report in
-           build/smoke_alt/alt.json
+           either pass on every run; the flow expectation kernel launched
+           by every ASpan flow head (8 a batch on main's pairs; on run A;
+           in ASpan's training steps) and never by MatchFormer; reported:
+           warm pairs/s, device ms of a batch, step seconds and peak
+           memory; full report in build/smoke_alt/alt.json
   mesh     parallel/mesh.py on the card, reusing main's engine results,
            the sfm phase's coarse model and the train phase's files:
            (a) main's 6 pairs on a two-entry mesh of the one card
@@ -166,6 +174,9 @@ ASPAN_WEIGHTS = os.path.join(REPO, "weights", "demo_aspan_bf16.msgpack")
 # halves) on the tensor cores.
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
+# fp32 FFMA on the CUDA cores, without tensor cores (132 SMs x 128 lanes x
+# 2 flops x 1.98 GHz): the flow expectation kernel's peak.
+PEAK_FP32_FLOPS = 67e12
 
 # The dense JAX engine on the CPU, same scene and settings, by compute
 # dtype: (valid matches, median epipolar error in px), recorded with
@@ -180,6 +191,12 @@ MAIN_SHAPE = dict(b=2, l=10816, s=10816, c=256)
 VERB_SHAPE = dict(b=8, l=10816, s=10816, c=256)
 RAGGED_SHAPE = dict(b=2, l=1000, s=777, c=256)
 ETH3D_SHAPE = dict(b=1, l=40000, s=40000, c=256)  # 1600 px, one pair
+# The flow expectation (ops/flow_expectation.py): one head of the ASpan
+# cell's batch of 8 pairs at 832 px (L = 104 x 104), and a ragged grid;
+# the bound (cells) on the kernel's distance from its plain version.
+FLOW_SHAPE = dict(b=8, h=104, w=104)
+FLOW_RAGGED = dict(b=2, h=13, w=17)
+FLOW_TOL = {"ragged": 5e-5, "cell": 1e-3}
 # Device kernels of csrc/dual_softmax.cu, as the profiler names them.
 DSM_KERNELS = ("pass1_kernel", "pass2_kernel", "combine1_kernel",
                "combine2_kernel")
@@ -323,6 +340,38 @@ def check_kernels(shape, seed, timed, bf16=False):
             out[name] = dict(ms=ms, plain_ms=cuda_ms(plain_fn, 3),
                              bound_ms=bound_ms, bound_by=bound_by,
                              share_of_bound=bound_ms / ms, max_abs_err=err)
+    return out
+
+
+def check_flow_kernel(shape, seed, tol, timed):
+    """The flow expectation kernel against its plain version on seeded
+    random projections (logits ~1..5), within `tol` cells; with timed, its
+    time beside its bound (2 B L^2 64 fp32 flops at PEAK_FP32_FLOPS: no
+    tensor cores), the plain version's, and scaled_dot_product_attention
+    of the same function in fp32 (values: the cell coordinates), which
+    the port never calls."""
+    from detectorfreesfm_tpu_torch.ops import flow_expectation as F
+
+    b, w = shape["b"], shape["w"]
+    l = shape["h"] * w
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q, k = (torch.randn(b, l, 64, device="cuda", generator=g) for _ in "qk")
+    err = (F.flow_expectation(q, k, w) -
+           F.flow_expectation_plain(q, k, w)).abs().max().item()
+    check(err <= tol, "flow_expectation vs plain", shape, err, tol)
+    out = dict(shape=shape, max_abs_err_cells=err, tol_cells=tol)
+    if timed:
+        flops = 2.0 * b * l * l * 64
+        bound_ms = flops / PEAK_FP32_FLOPS * 1e3
+        grid = F.grid_xy(l, w, q.device).expand(b, -1, -1).contiguous()
+        ms = cuda_ms(lambda: F.flow_expectation(q, k, w), 20)
+        out.update(
+            ms=ms, flops=flops, bound_ms=bound_ms,
+            bound_by="operations (fp32 FFMA)", share_of_bound=bound_ms / ms,
+            plain_ms=cuda_ms(lambda: F.flow_expectation_plain(q, k, w), 3),
+            library_ms=cuda_ms(
+                lambda: torch.nn.functional.scaled_dot_product_attention(
+                    q, k, grid, scale=0.125), 3))
     return out
 
 
@@ -3624,6 +3673,13 @@ def read_launches():
     return dict(fused_dsm.launches)
 
 
+def flow_launches():
+    """Launches of the flow expectation kernel so far in the process."""
+    from detectorfreesfm_tpu_torch.ops import flow_expectation
+
+    return flow_expectation.launches["flow_expectation"]
+
+
 def main_scene():
     """Main's scene: names, LoadedImages, exhaustive pairs and the true
     (K, q, t)."""
@@ -3667,11 +3723,16 @@ def alt_main(params, dtype, scene):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
+    flow0 = flow_launches()
     t0 = time.time()
     raw = engine.match_pairs(pairs, images)
     torch.cuda.synchronize()
     warm_s = time.time() - t0
     launches = read_launches()
+    flow = flow_launches() - flow0
+    # Every flow head of every batch: 2 directions x the rounds.
+    want_flow = (2 * engine.model.cfg.n_flow_layers *
+                 -(-len(pairs) // engine.cfg.batch_size))
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     batch_ms = forward_ms(engine.model, images, pairs)
     profile = profile_batch(engine, pairs[:2], images)
@@ -3685,7 +3746,7 @@ def alt_main(params, dtype, scene):
     out = dict(total_valid=sum(counts.values()), jax_total_valid=jax_valid,
                median_epipolar_px=float(np.median(np.concatenate(errs))),
                jax_median_epipolar_px=jax_median, valid_per_pair=counts,
-               launches=launches, warm_s=warm_s,
+               launches=launches, flow_launches=flow, warm_s=warm_s,
                pairs_per_s=len(pairs) / warm_s, batch2_forward_ms=batch_ms,
                max_memory_allocated_gib=peak, profile_one_batch=profile)
     check(set(raw) == set(pairs), "alt main: pairs missing")
@@ -3696,6 +3757,8 @@ def alt_main(params, dtype, scene):
     check(out["median_epipolar_px"] <= jax_median + 0.5, "alt main", dtype,
           "epipolar median", out["median_epipolar_px"], jax_median)
     check(launches == NO_LAUNCHES, "alt main", dtype, "launches", launches)
+    check(flow == want_flow, "alt main", dtype, "flow kernel launches", flow,
+          want_flow)
     return out
 
 
@@ -3764,9 +3827,11 @@ def alt_phase():
     out = os.path.join(work, "out_a")
     reset_launches()
     torch.cuda.reset_peak_memory_stats()
+    flow0 = flow_launches()
     got, run_a = run_reconstruct(cli.main, scene, out, "--fused", "on",
                                  *ALT_ARGS)
     got["launches"] = read_launches()
+    run_a_flow = flow_launches() - flow0
     got["missing_files"] = written_files(out)
     (_key, engine), = pipeline._ENGINE_CACHE.items()
     check(type(engine.model).__name__ == "ASpanMatcher"
@@ -3775,7 +3840,7 @@ def alt_phase():
     pipeline._ENGINE_CACHE.clear()
     del engine
     report["run_a"] = dict(
-        run_a, launches=got["launches"],
+        run_a, launches=got["launches"], flow_launches=run_a_flow,
         max_memory_allocated_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
         n_registered=got["result"]["n_registered"],
         n_points=got["result"]["n_points"],
@@ -3794,10 +3859,12 @@ def alt_phase():
         reset_launches()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+        flow0 = flow_launches()
         t1 = time.time()
         rc = cli.main(alt_train_argv(data, os.path.join(work, "train"),
                                      arch) + ["--log-json", log])
         wall = time.time() - t1
+        flow = flow_launches() - flow0
         check(rc == 0, "alt train", arch, "exit code", rc)
         with open(log) as f:
             steps = [json.loads(ln) for ln in f]
@@ -3812,7 +3879,7 @@ def alt_phase():
             max_memory_allocated_gib=torch.cuda.max_memory_allocated()
             / 2 ** 30, losses=[s["loss"] for s in steps],
             grad_norms=[s["grad_norm"] for s in steps],
-            launches=read_launches(), checkpoint=ckpt,
+            launches=read_launches(), flow_launches=flow, checkpoint=ckpt,
             checkpoint_leaves=len(back),
             jax=JAX_TRAIN[f"train_matcher_{arch}"])
     laps["train_s"] = time.time() - t0
@@ -3845,9 +3912,17 @@ def alt_phase():
         json.dump(dict(report, got=got), f, indent=1, default=float)
 
     _check_reconstruct_gates(got, JAX_RECONSTRUCT_ASPAN, NO_LAUNCHES)
+    check(run_a_flow > 0, "run A with ASpan: flow kernel launches",
+          run_a_flow)
     for arch, g in report["train"].items():
         check(g["launches"] == NO_LAUNCHES, "alt train", arch, "launches",
               g["launches"])
+    # ASpan trains through the kernel's autograd Function: 2 directions x
+    # 4 rounds a step.
+    check(report["train"]["aspan"]["flow_launches"] >= 2 * 4 * TRAIN_STEPS
+          and report["train"]["matchformer"]["flow_launches"] == 0,
+          "alt train: flow kernel launches",
+          {a: g["flow_launches"] for a, g in report["train"].items()})
     _check_alt_train_gates(report["train"], JAX_TRAIN)
     serve = report["serve_matchformer"]
     check(serve["result"] is not None and serve["matches_stored"]
@@ -4359,7 +4434,8 @@ def main():
     if "--dp-reference" in sys.argv:
         return dp_reference(sys.argv[sys.argv.index("--dp-reference") + 1])
     from detectorfreesfm_tpu_torch.device import set_fp32_backends
-    from detectorfreesfm_tpu_torch.ops import _build, fused_dsm
+    from detectorfreesfm_tpu_torch.ops import (_build, flow_expectation,
+                                               fused_dsm)
     from detectorfreesfm_tpu_torch.utils.checkpoint import load_matcher_params
 
     set_fp32_backends()  # plain versions' matmuls in full fp32, as the kernels
@@ -4374,20 +4450,31 @@ def main():
     emit({"phase": "device", "name": name, "nvidia_smi": smi,
           "torch": torch.__version__, "cuda": torch.version.cuda})
 
+    def ptxas(so):
+        log = so.with_suffix(".log")
+        return [ln.strip() for ln in (log.read_text() if log.exists()
+                                      else "").splitlines()
+                if "registers" in ln or "spill" in ln
+                or "Performance Loss" in ln]
+
     t0 = time.time()
     so = _build.build(fused_dsm.SOURCE)
     _build.load(fused_dsm.SOURCE)
+    flow_so = _build.build(flow_expectation.SOURCE)
+    _build.load(flow_expectation.SOURCE)
     build_s = time.time() - t0
     hgmma = _build.sass_count(so, "HGMMA")
-    log = so.with_suffix(".log").read_text() if so.with_suffix(
-        ".log").exists() else ""
+    flow_mma = {op: _build.sass_count(flow_so, op)
+                for op in ("FFMA", "HMMA", "HGMMA")}
     emit({"phase": "build", "seconds": build_s, "library": so.name,
-          "hgmma_instructions": hgmma,
-          "ptxas": [ln.strip() for ln in log.splitlines()
-                    if "registers" in ln or "spill" in ln
-                    or "Performance Loss" in ln]})
+          "hgmma_instructions": hgmma, "ptxas": ptxas(so),
+          "flow_library": flow_so.name, "flow_instructions": flow_mma,
+          "flow_ptxas": ptxas(flow_so)})
     check(hgmma > 0, "no HGMMA instruction: the product is not on the "
           "tensor cores")
+    check(flow_mma["FFMA"] > 0 and flow_mma["HMMA"] == 0
+          and flow_mma["HGMMA"] == 0, "the flow expectation is fp32 FFMA "
+          "on the CUDA cores", flow_mma)
     # The native image loader (g++ with -ljpeg -lpng): whether this machine
     # has the headers and libraries. The verb reads PNG with data/png.py
     # and JPEG with csrc/jpeg.cpp either way; both need g++ only, and must
@@ -4415,9 +4502,13 @@ def main():
     verb_k = check_kernels(VERB_SHAPE, seed=3, timed=True)
     eth3d = check_kernels(ETH3D_SHAPE, seed=2, timed=True)
     ties = check_ties()
+    flow_k = {"ragged": check_flow_kernel(FLOW_RAGGED, 4, FLOW_TOL["ragged"],
+                                          timed=False),
+              "cell_shape": check_flow_kernel(FLOW_SHAPE, 5,
+                                              FLOW_TOL["cell"], timed=True)}
     emit({"phase": "kernels", "seconds": time.time() - t0,
           "ragged": ragged, "main_shape": main_k, "verb_shape": verb_k,
-          "eth3d_1600px": eth3d, "ties": ties})
+          "eth3d_1600px": eth3d, "ties": ties, "flow_expectation": flow_k})
 
     t0 = time.time()
     params = load_matcher_params(WEIGHTS)
@@ -4512,6 +4603,22 @@ def main():
             "max_abs_err_bf16_features": b16["kernels_bf16_features"][
                 kname]["max_abs_err"],
             "ms_bf16_features": b16["kernels_bf16_features"][kname]["ms"]})
+    flow = flow_k["cell_shape"]
+    kernels.append({
+        "name": "flow_expectation", "route": "cuda",
+        "source": "detectorfreesfm_tpu_torch/csrc/flow_head.cu",
+        "replaces": None,  # JAX's FlowHead leaves it to XLA
+        "launches": alt["main"]["float32"]["flow_launches"],
+        "launches_by_path": {
+            **{f"alt_main_{dt}": g["flow_launches"]
+               for dt, g in alt["main"].items()},
+            "alt_reconstruct_a": alt["run_a"]["flow_launches"],
+            **{f"alt_train_{a}": g["flow_launches"]
+               for a, g in alt["train"].items()}},
+        "shape": flow["shape"], "max_abs_err": flow["max_abs_err_cells"],
+        "ms": flow["ms"], "plain_ms": flow["plain_ms"],
+        "bound_ms": flow["bound_ms"], "bound_by": flow["bound_by"],
+        "library_ms": flow["library_ms"]})
     print(smi)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

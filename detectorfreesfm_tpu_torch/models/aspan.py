@@ -34,7 +34,9 @@ then `matcher/dual_softmax` (the dense confidence and the top-K), with
 their device time; and the counters `aspan/window_queries` (queries x
 rounds x directions) and `aspan/window_clamped` (those whose window the
 grid's edge clipped, so that it attends repeated cells), the latter
-summed on the card.
+summed on the card, `aspan/flow_queries` (the flow heads' queries) and
+`aspan/flow_fused` (those whose expectation the kernel of
+ops/flow_expectation.py computed, without the (B, L, L) similarity).
 """
 
 from __future__ import annotations
@@ -47,6 +49,8 @@ import torch
 from torch import nn
 
 from ..device import set_backends
+from ..ops import flow_expectation as flow_ops
+from ..ops.flow_expectation import flow_expectation, grid_xy
 from ..utils.profiler import count, span
 from .backbone import ResNetFPN_8_2
 from .layers import Linear
@@ -67,13 +71,6 @@ class CoarseViews(NamedTuple):
     coarse: torch.Tensor   # (N, h8, w8, C) position-encoded, 1/8 grid
 
 
-def _grid_xy(l: int, w: int, device):
-    """(L, 2) float32 (col, row) of each flat cell of a width-w grid."""
-    pos = torch.arange(l, device=device, dtype=torch.float32)
-    return torch.stack([pos % w, torch.div(pos, w, rounding_mode="floor")],
-                       dim=-1)
-
-
 class FlowHead(nn.Module):
     """Per-cell flow into the other image: the softmax-expected position
     of a 64-d similarity, minus the cell's own, plus a learned residual."""
@@ -88,16 +85,18 @@ class FlowHead(nn.Module):
 
     def forward(self, x, source, hw):
         """x, source: (B, L, C) on an (h, w) grid -> (B, L, 2) float32
-        (dx_col, dy_row) cell offsets."""
-        l, w = x.shape[1], hw[1]
-        sim = torch.bmm(self.proj_q(x).float(),
-                        self.proj_k(source).float().transpose(1, 2))
-        p = torch.softmax(sim.div_(8.0), dim=-1)          # (B, L, L) fp32
-        # The expectation as one product with the (L, 2) cell coordinates:
-        # p * cols would be a second (B, L, L) tensor.
-        grid = _grid_xy(l, w, x.device)
-        flow = torch.matmul(p, grid) - grid
-        return flow + self.delta(x).float()
+        (dx_col, dy_row) cell offsets. The expectation is the kernel of
+        ops/flow_expectation.py on the card, its dense version on the
+        CPU."""
+        b, l, w = x.shape[0], x.shape[1], hw[1]
+        before = flow_ops.launches["flow_expectation"]
+        expected = flow_expectation(self.proj_q(x).float(),
+                                    self.proj_k(source).float(), w)
+        count("aspan/flow_queries", b * l)
+        count("aspan/flow_fused", b * l * (
+            flow_ops.launches["flow_expectation"] - before))
+        grid = grid_xy(l, w, x.device)
+        return expected - grid + self.delta(x).float()
 
 
 class FlowCrossAttention(EncoderLayer):
@@ -115,7 +114,7 @@ class FlowCrossAttention(EncoderLayer):
         b, l = flow.shape[:2]
         h, w = hw
         r = self.radius
-        here = _grid_xy(l, w, flow.device)
+        here = grid_xy(l, w, flow.device)
         cx = (here[:, 0] + flow[..., 0]).clamp(0, w - 1)
         cy = (here[:, 1] + flow[..., 1]).clamp(0, h - 1)
         offs = torch.arange(-r, r + 1, device=flow.device,

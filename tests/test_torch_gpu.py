@@ -1130,3 +1130,190 @@ def test_layer_spans_agree_with_module_hooks():
             name, spans[name], ms)
     assert spans["matcher/dual_softmax"]["device_ms"] > 0
     assert spans["matcher/fine"]["device_ms"] > 0
+
+
+# --- ASpan's flow expectation (ops/flow_expectation.py) ---------------------
+
+
+def _flow_projections(size, n_pairs, heads=("flow0_0", "flow0_3")):
+    """{head: (q, k, w)}: the fp32 projections that the bundled ASpan
+    model's flow heads of rounds 0 and 3 (direction 0) take on n_pairs
+    pairs of a synthetic scene at size px."""
+    from detectorfreesfm_tpu_torch.data.synthetic import (SyntheticConfig,
+                                                          generate_scene)
+    from detectorfreesfm_tpu_torch.models import build_matcher
+    from detectorfreesfm_tpu_torch.utils.checkpoint import load_arch_params
+
+    model = build_matcher("aspan")
+    model.load_state_dict(load_arch_params(
+        os.path.join(REPO, "weights", "demo_aspan_bf16.msgpack"), "aspan"))
+    model = model.cuda().eval()
+    n_views = 5 if n_pairs > 1 else 2
+    imgs = generate_scene(0, SyntheticConfig(size=size, n_views=n_views))[0]
+    pairs = [(i, j) for i in range(n_views)
+             for j in range(i + 1, n_views)][:n_pairs]
+    x = torch.from_numpy(imgs[..., None]).cuda()
+    got, hooks = {}, []
+    for name in heads:
+        def hook(mod, args, _out, name=name):
+            xx, src, hw = args
+            got[name] = (mod.proj_q(xx).float().contiguous(),
+                         mod.proj_k(src).float().contiguous(), hw[1])
+        hooks.append(getattr(model, name).register_forward_hook(hook))
+    with torch.no_grad():
+        model(x[[a for a, _ in pairs]], x[[b for _, b in pairs]])
+    for h in hooks:
+        h.remove()
+    return got
+
+
+def _flow_errors(q, k, w):
+    """Largest |difference| in cells of the kernel from the plain version
+    and of both from the float64 expectation, and the device memory the
+    kernel's call took above what was allocated before it."""
+    from detectorfreesfm_tpu_torch.ops import flow_expectation as fe
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    before = fe.launches["flow_expectation"]
+    got = fe.flow_expectation(q, k, w)
+    torch.cuda.synchronize()
+    extra = torch.cuda.max_memory_allocated() - base
+    assert fe.launches["flow_expectation"] == before + 1
+    plain = fe.flow_expectation_plain(q, k, w)
+    grid = fe.grid_xy(k.shape[1], w, q.device).double()
+    ref = torch.cat([torch.matmul(torch.softmax(torch.bmm(
+        q[i:i + 1].double(), k[i:i + 1].double().transpose(1, 2)) / 8.0,
+        dim=-1), grid) for i in range(q.shape[0])])
+    return dict(kernel=(got - plain).abs().max().item(),
+                kernel_f64=(got.double() - ref).abs().max().item(),
+                plain_f64=(plain.double() - ref).abs().max().item(),
+                extra_bytes=extra)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("values", ["float32", "bf16_valued"])
+def test_flow_kernel_on_the_cells_projections(values):
+    """832 px, B = 8 pairs (L = 10 816, w = 104), the bundled weights'
+    projections of rounds 0 and 3 (logits up to ~41), as they are or
+    rounded to bf16 values: the kernel within 1e-3 cells of the plain
+    version (read 4.3e-4 to 5.4e-4; the plain version itself lies
+    4.4e-4 to 5.6e-4 from the float64 expectation), no farther from the
+    float64 expectation than the plain version plus 5e-5 cells (read
+    0.8e-4 to 1.7e-4 against its 4.4e-4 to 5.6e-4), and no (B, L, L)
+    tensor: the call allocates under 100 MB (the plain version's
+    similarity alone is 3.74 GB)."""
+    _needs_cuda()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for name, (q, k, w) in _flow_projections(832, 8).items():
+        if values == "bf16_valued":
+            q, k = q.bfloat16().float(), k.bfloat16().float()
+        assert q.shape == (8, 10816, 64) and w == 104
+        e = _flow_errors(q, k, w)
+        assert e["kernel"] <= 1e-3, (name, e)
+        assert e["kernel_f64"] <= e["plain_f64"] + 5e-5, (name, e)
+        assert e["extra_bytes"] < 100e6, (name, e)
+
+
+@pytest.mark.cuda
+def test_flow_kernel_at_1600px_batch_1():
+    """1600 px, one pair (L = 40 000, w = 200, 313 tiles of 128 keys),
+    the bundled weights' round-3 projections: within 1e-3 cells of the
+    plain version (read 4.4e-4), no farther from the float64 expectation
+    than it plus 5e-5 cells (read 3.2e-4 against 5.0e-4)."""
+    _needs_cuda()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, w = _flow_projections(1600, 1, heads=("flow0_3",))["flow0_3"]
+    assert q.shape == (1, 40000, 64) and w == 200
+    e = _flow_errors(q, k, w)
+    assert e["kernel"] <= 1e-3, e
+    assert e["kernel_f64"] <= e["plain_f64"] + 5e-5, e
+    assert e["extra_bytes"] < 100e6, e
+
+
+@pytest.mark.cuda
+def test_flow_kernel_on_a_ragged_grid():
+    """13 x 17 (L = 221: one full tile of 128 keys and one of 93, rows
+    past L in the last row tile), two pairs of random projections (logits
+    up to ~5): within 5e-5 cells of the plain version (read 2.9e-6, a
+    few ulps of the coordinates)."""
+    _needs_cuda()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device="cuda").manual_seed(0)
+    q, k = (torch.randn(2, 221, 64, device="cuda", generator=g)
+            for _ in "qk")
+    e = _flow_errors(q, k, 17)
+    assert e["kernel"] <= 5e-5, e
+
+
+@pytest.mark.cuda
+def test_flow_kernel_keeps_a_running_max():
+    """Logits far beyond exp's range, which a softmax without the running
+    max would overflow: (a) every query 40 times one key (logits ~580,
+    one-hot): each expectation is that key's cell within 1e-5 cells (read
+    9.5e-7, an ulp of 16); (b) projections offset by 30 (logits ~7 700,
+    the largest key tile after tile): within 5e-5 cells of the plain
+    version (read 1.9e-6)."""
+    _needs_cuda()
+    from detectorfreesfm_tpu_torch.ops import flow_expectation as fe
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device="cuda").manual_seed(1)
+    k = torch.randn(2, 221, 64, device="cuda", generator=g)
+    perm = torch.randperm(221, device="cuda", generator=g)
+    q = (40.0 * k[:, perm]).contiguous()
+    got = fe.flow_expectation(q, k, 17)
+    want = fe.grid_xy(221, 17, "cuda")[perm].expand(2, -1, -1)
+    assert (got - want).abs().max().item() <= 1e-5
+    q, k = (torch.randn(2, 221, 64, device="cuda", generator=g) * 3 + 30
+            for _ in "qk")
+    e = _flow_errors(q, k, 17)
+    assert e["kernel"] <= 5e-5, e
+
+
+@pytest.mark.cuda
+def test_flow_function_gradients_equal_autograd_through_plain():
+    """The autograd Function (kernel forward, recomputing backward) on a
+    32 x 32 grid, two pairs: dq and dk within 1e-5 of the largest
+    gradient of autograd through the plain version (read 6.6e-7 and
+    3.6e-7: sums in another order)."""
+    _needs_cuda()
+    from detectorfreesfm_tpu_torch.ops import flow_expectation as fe
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device="cuda").manual_seed(2)
+    q, k = (torch.randn(2, 1024, 64, device="cuda", generator=g) * 1.5
+            for _ in "qk")
+    weight = torch.randn(2, 1024, 2, device="cuda", generator=g)
+    grads = []
+    for fn in (fe.flow_expectation, fe.flow_expectation_plain):
+        qa, ka = q.clone().requires_grad_(), k.clone().requires_grad_()
+        (fn(qa, ka, 32) * weight).sum().backward()
+        grads.append((qa.grad, ka.grad))
+    for got, want in zip(*grads):
+        assert (got - want).abs().max() <= 1e-5 * want.abs().max()
+
+
+@pytest.mark.cuda
+def test_flow_head_counts_its_queries_through_the_kernel():
+    """A FlowHead on the card under a profiler: every query counted as
+    computed by the kernel (the share flow_fused_pct reads), one launch."""
+    _needs_cuda()
+    from torch.profiler import ProfilerActivity, profile
+
+    from detectorfreesfm_tpu_torch.models.aspan import FlowHead
+    from detectorfreesfm_tpu_torch.ops import flow_expectation as fe
+    from detectorfreesfm_tpu_torch.utils import profiler
+
+    torch.manual_seed(0)
+    head = FlowHead(256).cuda().eval()
+    x, src = (torch.randn(2, 13 * 17, 256, device="cuda") for _ in "xs")
+    before = fe.launches["flow_expectation"]
+    profiler.reset()
+    with profile(activities=[ProfilerActivity.CPU]), torch.no_grad():
+        head(x, src, (13, 17))
+    counters = profiler.snapshot()["counters"]
+    assert counters["aspan/flow_queries"] == 2 * 221
+    assert counters["aspan/flow_fused"] == 2 * 221
+    assert fe.launches["flow_expectation"] == before + 1
