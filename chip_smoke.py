@@ -151,9 +151,8 @@ standard library, numpy, torch and the port. Phases, one JSON line each:
            report in build/smoke_mesh/mesh.json
 
 The build_image_loader phase builds the JPEG decoder (csrc/jpeg.cpp, g++
-and the standard library alone; it must build), the PNG unfilter, and the
-native image loader (g++, -ljpeg -lpng), saying whether that one linked. Any failed check raises (non-zero exit). The
-last two lines are the kernels summary and {"ok": true, "device": {...}}.
+and the standard library alone) and the PNG unfilter; both must build.
+Any failed check raises (non-zero exit). The last two lines are the kernels summary and {"ok": true, "device": {...}}.
 """
 
 import json
@@ -2571,8 +2570,7 @@ def reconstruct_phase():
     n_batches_c = -(-n_pairs_c // RECON_BATCH)
     report = dict(
         reconstruct_s=time.time() - t_phase, write_scene_s=write_s,
-        image_backend=backend, native_image_loader=images.native_error()
-        is None, native_error=images.native_error(),
+        image_backend=backend,
         run_a=dict(run_a, launches=got["launches"],
                    n_registered=got["result"]["n_registered"],
                    n_points=got["result"]["n_points"],
@@ -4475,23 +4473,19 @@ def main():
     check(flow_mma["FFMA"] > 0 and flow_mma["HMMA"] == 0
           and flow_mma["HGMMA"] == 0, "the flow expectation is fp32 FFMA "
           "on the CUDA cores", flow_mma)
-    # The native image loader (g++ with -ljpeg -lpng): whether this machine
-    # has the headers and libraries. The verb reads PNG with data/png.py
-    # and JPEG with csrc/jpeg.cpp either way; both need g++ only, and must
+    # The image decoders: the verb reads PNG with data/png.py (its C++
+    # unfilter) and JPEG with csrc/jpeg.cpp; both need g++ only, and must
     # build.
     from detectorfreesfm_tpu_torch.data import images, png
 
     t0 = time.time()
     jpeg = images._load_jpeg() is not None
     jpeg_s = time.time() - t0
-    native = images._load_native() is not None
     unfilter = png._load_native() is not None
     emit({"phase": "build_image_loader", "seconds": time.time() - t0,
           "jpeg_decoder": jpeg, "jpeg_decoder_build_s": jpeg_s,
           "jpeg_error": images.jpeg_error(),
           "jpeg_library": images.jpeg_library_path().name,
-          "native_image_loader": native, "error": images.native_error(),
-          "library": images.library_path().name,
           "png_unfilter": unfilter, "png_unfilter_error": png.native_error()})
     check(jpeg, "the JPEG decoder did not build", images.jpeg_error())
     check(unfilter, "C++ PNG unfilter did not build", png.native_error())

@@ -37,8 +37,9 @@
 //   int jpeg_gray_resize(const char* path, int long_side, int df,
 //                        int pad_to, float* out, int* meta, char* err,
 //                        int errlen);
-// jpeg_gray_resize is csrc/imageloader.cpp's decode_gray_resize contract
-// (meta = [w0, h0, nw, nh]) with that file's resample_axis arithmetic.
+// jpeg_gray_resize is the JAX package's native/imageloader.cpp
+// decode_gray_resize contract (meta = [w0, h0, nw, nh]) with that file's
+// resample_axis arithmetic.
 
 #include <algorithm>
 #include <cmath>
@@ -972,7 +973,7 @@ void to_rgb(Decoder& d, uint8_t* out) {
   }
 }
 
-// -- file reading and the resize (csrc/imageloader.cpp's) --------------------
+// -- file reading and the resize (native/imageloader.cpp's) ------------------
 
 std::vector<uint8_t> read_file(const char* path) {
   FILE* f = std::fopen(path, "rb");
@@ -997,7 +998,7 @@ void decode(const char* path, bool rgb, Decoder& d,
     if (d.want[i]) idct_component(d.comps[i]);
 }
 
-// Pillow-compatible separable triangle resample, as csrc/imageloader.cpp's
+// Pillow-compatible separable triangle resample, as native/imageloader.cpp's
 // resample_axis: the same taps, added in the same order in double and
 // rounded once to float, so the floats equal that file's. The loops run
 // line by line (the taps are computed once), which changes no sum.

@@ -1,31 +1,27 @@
 """Image loading, resizing and padding to a fixed square frame, without PIL.
 
 Port of the JAX package's data/images.py. `load_gray` decodes through one
-of three backends:
+of two backends, neither of which needs a system library:
 
   * "png": data/png.py (zlib, with the row filters undone in C++) and a
-    numpy copy of the native resize, which adds in the same order and
-    gives the same floats. It needs no system library.
+    numpy resize with the JAX native loader's arithmetic (Pillow's
+    triangle filter in double precision), which adds in the same order
+    and gives the same floats.
   * "jpeg": csrc/jpeg.cpp, a self-contained baseline and progressive JPEG
     decoder (standard C++ only, built with g++ at first use into the
     gitignored build/native/ at the repo root), whose luma and RGB equal
-    libjpeg's bit for bit, and which resizes with the native loader's
-    arithmetic in C++. It needs no system library either.
-  * "native": csrc/imageloader.cpp (the port's copy of the JAX package's
-    native/imageloader.cpp, which links libjpeg and libpng), built with g++
-    at first use into build/native/ (never into native/). JPEG luma comes
-    straight from the Y channel; the resize is Pillow's triangle filter in
-    double precision. It raises, naming libjpeg/libpng, where the library
-    does not build (the card has no jpeglib.h).
+    libjpeg's bit for bit, and which resizes with the same arithmetic in
+    C++.
 
-"auto" reads PNG files with the png path, JPEG files with the jpeg path
-(so a result does not depend on whether the machine has libjpeg) and
-anything else with the native one. ctypes and zlib release the GIL, so a
-thread pool decodes in parallel on every path. `last_backend` names the
-backend that decoded the last image (threads share it, so read it after a
-run). `image_size` reads (W, H) from a PNG or JPEG header in Python;
-`decode_rgb`, `sample_colors` and `load_rgb_mean_color` give colours as
-the JAX package's PIL path does (PIL's convert("RGB")).
+"auto" reads PNG files with the png path and JPEG files with the jpeg
+path, and refuses anything else with ValueError naming the file (the
+JAX package's native loader, libjpeg and libpng, reads nothing more).
+ctypes and zlib release the GIL, so a thread pool decodes in parallel on
+both paths. `last_backend` names the backend that decoded the last image
+(threads share it, so read it after a run). `image_size` reads (W, H)
+from a PNG or JPEG header in Python; `decode_rgb`, `sample_colors` and
+`load_rgb_mean_color` give colours as the JAX package's PIL path does
+(PIL's convert("RGB")).
 """
 
 from __future__ import annotations
@@ -44,15 +40,11 @@ import numpy as np
 from ..utils import native
 from . import png
 
-SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "imageloader.cpp"
-LIBS = ("-ljpeg", "-lpng")
 JPEG_SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "jpeg.cpp"
-BACKENDS = ("auto", "native", "png", "jpeg")
+BACKENDS = ("auto", "png", "jpeg")
 JPEG_SIGNATURE = b"\xff\xd8"
 
 _lock = threading.Lock()
-_native_lib: Optional[ctypes.CDLL] = None
-_native_error: Optional[str] = None
 _jpeg_lib: Optional[ctypes.CDLL] = None
 _jpeg_error: Optional[str] = None
 last_backend: Optional[str] = None
@@ -81,49 +73,9 @@ def _resize_dims(w: int, h: int, long_side: int, df: int) -> tuple:
     return nw, nh
 
 
-# -- the native loader --------------------------------------------------------
-
-
-def library_path() -> Path:
-    """build/native/libimageloader_<hash of source, flags and libs>.so"""
-    return native.library_path(SOURCE, LIBS)
-
-
-def _load_native() -> Optional[ctypes.CDLL]:
-    """Build (once) and load the C++ loader; None if g++, libjpeg/libpng
-    or the load fails (the reason stays in native_error())."""
-    global _native_lib, _native_error
-    with _lock:
-        if _native_lib is not None or _native_error is not None:
-            return _native_lib
-        try:
-            lib = native.build(SOURCE, LIBS)
-            fp, ip = ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_int)
-            lib.decode_gray_resize.argtypes = [
-                ctypes.c_char_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                fp, ip]
-            lib.decode_gray_resize.restype = ctypes.c_int
-            lib.image_size.argtypes = [ctypes.c_char_p, ip]
-            lib.image_size.restype = ctypes.c_int
-            lib.decode_rgb.argtypes = [
-                ctypes.c_char_p, ctypes.POINTER(ctypes.c_uint8),
-                ctypes.c_long, ip]
-            lib.decode_rgb.restype = ctypes.c_int
-            _native_lib = lib
-        except native.BUILD_ERRORS as e:
-            _native_error = f"{type(e).__name__}: {e}"
-        return _native_lib
-
-
-def native_error() -> Optional[str]:
-    """Why the native loader is unavailable (None if it loaded or was not
-    tried yet)."""
-    return _native_error
-
-
 def _backend_for(path: str, backend: str) -> str:
-    """The backend that decodes `path`: "png", "jpeg" or "native" (see
-    the module docstring)."""
+    """The backend that decodes `path`: "png" or "jpeg" (see the module
+    docstring)."""
     if backend not in BACKENDS:
         raise ValueError(f"unknown image backend {backend!r}: {BACKENDS}")
     if backend != "auto":
@@ -132,17 +84,9 @@ def _backend_for(path: str, backend: str) -> str:
         head = f.read(8)
     if head == png.SIGNATURE:
         return "png"
-    return "jpeg" if head[:2] == JPEG_SIGNATURE else "native"
-
-
-def _native_or_raise(path: str) -> ctypes.CDLL:
-    lib = _load_native()
-    if lib is None:
-        raise RuntimeError(
-            f"cannot decode {path}: the native image loader (libjpeg and "
-            f"libpng through g++) is unavailable ({_native_error}); PNG and "
-            "JPEG files decode without it")
-    return lib
+    if head[:2] == JPEG_SIGNATURE:
+        return "jpeg"
+    raise ValueError(f"{path}: neither PNG nor JPEG")
 
 
 # -- the JPEG decoder ---------------------------------------------------------
@@ -216,9 +160,10 @@ def _jpeg_plane(path: str, rgb: bool) -> np.ndarray:
 
 
 def _taps(n_src: int, n_out: int):
-    """Pillow's triangle filter along one axis, as csrc/imageloader.cpp's
-    resample_axis builds it: (n_out, k) source indices and raw weights,
-    zero-padded to k taps, and each output's weight total."""
+    """Pillow's triangle filter along one axis, as the JAX package's
+    native/imageloader.cpp builds it (resample_axis): (n_out, k) source
+    indices and raw weights, zero-padded to k taps, and each output's
+    weight total."""
     scale = n_src / n_out
     fscale = max(1.0, scale)
     support = fscale
@@ -247,8 +192,9 @@ def _taps(n_src: int, n_out: int):
 
 def resample_axis(src: np.ndarray, n_out: int, axis: int) -> np.ndarray:
     """Resize a float32 image along `axis` (1: width, 0: height) with the
-    native loader's filter: the taps are added in float64 in source order,
-    then divided by their total and rounded to float32, as in C++."""
+    JAX native loader's filter: the taps are added in float64 in source
+    order, then divided by their total and rounded to float32, as in
+    C++."""
     idx, wts, total = _taps(src.shape[axis], n_out)
     acc = np.zeros((src.shape[0], n_out) if axis == 1
                    else (n_out, src.shape[1]), np.float64)
@@ -285,8 +231,8 @@ def load_gray(
 ) -> LoadedImage:
     """Grayscale + Pillow-style triangle resize + zero-pad to a square.
 
-    backend: "auto" (png for PNG files, jpeg for JPEG files, native for the
-    rest), "native", "png" or "jpeg" (see the module docstring)."""
+    backend: "auto" (png for PNG files, jpeg for JPEG files), "png" or
+    "jpeg" (see the module docstring)."""
     global last_backend
     tgt = pad_to if pad_to is not None else long_side
     kind = _backend_for(path, backend)
@@ -296,18 +242,11 @@ def load_gray(
         return img
     out = np.zeros((tgt, tgt), dtype=np.float32)
     meta = np.zeros(4, dtype=np.int32)
-    fp = out.ctypes.data_as(ctypes.POINTER(ctypes.c_float))
-    mp = meta.ctypes.data_as(ctypes.POINTER(ctypes.c_int))
-    if kind == "jpeg":
-        _jpeg_call("jpeg_gray_resize", path, long_side, df, tgt, fp, mp)
-    else:
-        rc = _native_or_raise(path).decode_gray_resize(
-            path.encode(), long_side, df, tgt, fp, mp)
-        if rc != 0:
-            raise RuntimeError(
-                f"native image loader failed on {path} (rc={rc})")
+    _jpeg_call("jpeg_gray_resize", path, long_side, df, tgt,
+               out.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+               meta.ctypes.data_as(ctypes.POINTER(ctypes.c_int)))
     w0, h0, nw, nh = (int(v) for v in meta)
-    last_backend = kind
+    last_backend = "jpeg"
     scale = np.array([w0 / nw, h0 / nh], dtype=np.float32)
     return LoadedImage(out, scale, (w0, h0), (nw, nh))
 
@@ -357,19 +296,8 @@ def decode_rgb(path: str, backend: str = "auto") -> np.ndarray:
     kind = _backend_for(path, backend)
     if kind == "png":
         rgb = png.to_rgb(png.read_png(path))
-    elif kind == "jpeg":
-        rgb = _jpeg_plane(path, rgb=True)
     else:
-        lib = _native_or_raise(path)
-        w, h = image_size(path)
-        rgb = np.zeros((h, w, 3), np.uint8)
-        wh = np.zeros(2, np.int32)
-        rc = lib.decode_rgb(
-            path.encode(), rgb.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
-            rgb.size, wh.ctypes.data_as(ctypes.POINTER(ctypes.c_int)))
-        if rc != 0 or tuple(wh) != (w, h):
-            raise RuntimeError(
-                f"native image loader failed on {path} (rc={rc})")
+        rgb = _jpeg_plane(path, rgb=True)
     last_backend = kind
     return rgb
 

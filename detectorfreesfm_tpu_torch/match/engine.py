@@ -4,35 +4,34 @@ Port of the JAX package's match/engine.py. Pairs are staged on the host
 into a fixed square frame and stacked into steps of `batch_size` pairs per
 "data" row of the mesh (parallel/mesh.py), the last step padded with
 repeats whose results are dropped; each row's block runs through that
-device's copy of the matcher: DetectorFreeMatcher for the LoFTR family, or
-the ASpan and MatchFormer matchers of models.build_matcher, built as JAX
-builds them (threshold, capacity and compute dtype; the fine stage and the
-fused kernels are the LoFTR family's). Every block of a step is launched
-before any is brought back, and a step is launched before the previous
-one is collected. Variable match counts come back as fixed-capacity slots
-with validity masks; the conversion to original pixels, the optional
-rounding to a pixel grid and the scene-level keypoint merge
-(ops/grid_merge.py) run on the host, in pair order.
+device's copy of the matcher, built by models.build_matcher from the
+engine's config. Every block of a step is launched before any is brought
+back, and a step is launched before the previous one is collected.
+Variable match counts come back as fixed-capacity slots with validity
+masks; the conversion to original pixels, the optional rounding to a
+pixel grid and the scene-level keypoint merge (ops/grid_merge.py) run on
+the host, in pair order.
 
-A matcher with a per-image stage (`encode_views`: the LoFTR family, whose
-views hold the coarse and the fine maps, and ASpan, whose views hold the
-coarse map alone) runs it once per view of a call, not once per pair
-side: each row computes the distinct views that its blocks read, in
-batches of `batch_size` frames (the last padded with repeats), into a
-view store, and each step gathers its sides' views from the store, which
-the matcher's forward takes in place of frames (the pair stage alone,
-`match_views`). The store lives for one call and sizes itself by the
-matcher's bytes a view (`view_bytes`). Where a call's views do not fit
-half the card's free memory (CPU_STORE_VIEWS off the card), consecutive
-steps are taken in groups whose views fit, the store freed between
-groups; the steps and the results keep the call's order either way.
-MatchFormer, whose encoder attends across the two images, runs whole on
-each step's stacked frames.
+Every matcher keeps the two-stage contract of models/loftr.py's
+PairMatcher, and the engine knows nothing else of its family: it runs
+the per-image stage (`encode_views`) once per view of a call, not once
+per pair side. Each row computes the distinct views that its blocks
+read, in batches of `batch_size` frames (the last padded with repeats),
+into a view store, and each step gathers its sides' views from the
+store, which the matcher's forward takes in place of frames (the pair
+stage alone, `match_views`). The LoFTR family's views hold the coarse
+and the fine maps, ASpan's the coarse map alone and MatchFormer's (its
+encoder attends across the two images) the frames. The store lives for
+one call and sizes itself by the matcher's bytes a view (`view_bytes`).
+Where a call's views do not fit half the card's free memory
+(CPU_STORE_VIEWS off the card), consecutive steps are taken in groups
+whose views fit, the store freed between groups; the steps and the
+results keep the call's order either way.
 
 Under a torch profiler (utils/profiler.py) each step records the spans
-`engine/stage` (the step's frames, or its sides' store rows, and sizes,
-sharded and copied to the cards), `engine/launch` (enqueue each card's
-block), `engine/wait` (the blocking copy of the results to the host) and
+`engine/stage` (the step's sides' store rows and sizes, sharded and
+copied to the cards), `engine/launch` (enqueue each card's block),
+`engine/wait` (the blocking copy of the results to the host) and
 `engine/unpack` (rescale, rounding, the result dicts); a store records
 `engine/stage` (its frames to the cards) and `engine/launch` (the
 per-image stage) once per group. Counters: `engine/pairs` (real pairs),
@@ -54,8 +53,8 @@ import torch
 
 from ..data.images import LoadedImage, load_gray
 from ..device import compute_dtype
-from ..models import LOFTR_FAMILY, MATCHER_NAMES, build_matcher
-from ..models.loftr import DetectorFreeMatcher, MatcherConfig
+from ..models import MATCHER_NAMES, build_matcher
+from ..models.loftr import MatcherConfig
 from ..ops.grid_merge import merge_matches_to_keypoints
 from ..parallel.mesh import mesh_of, replicate_module, shard_leading_axis
 from ..utils.profiler import PassThroughProfiler, count, span
@@ -123,14 +122,8 @@ class PairMatchingEngine:
         self.device = self.mesh.first
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(0)  # random init only; weights overwrite it
-            if cfg.matcher in LOFTR_FAMILY:
-                self.model = DetectorFreeMatcher(cfg.matcher_config())
-            else:
-                mc = cfg.matcher_config()
-                self.model = build_matcher(
-                    cfg.matcher, match_threshold=mc.match_threshold,
-                    max_matches=mc.max_matches,
-                    compute_dtype=mc.compute_dtype)
+            self.model = build_matcher(
+                cfg.matcher, **dataclasses.asdict(cfg.matcher_config()))
         if params is None:
             # Random weights give noise that looks like a pipeline bug
             # downstream; make it impossible to miss.
@@ -182,10 +175,9 @@ class PairMatchingEngine:
             while len(chunk) < step:  # pad with repeats; discarded
                 chunk.append(chunk[-1])
             steps.append((chunk, n))
-        # The matchers with a per-image stage run it once per view of a
-        # group of steps (the view store); the others once per pair side.
-        groups = (self._view_groups(steps, images)
-                  if steps and hasattr(self.model, "encode_views") else None)
+        # The per-image stage runs once per view of a group of steps (the
+        # view store).
+        groups = self._view_groups(steps, images) if steps else []
 
         def dispatch(chunk, n, store):
             """Stage one step and launch each device's block (asynchronous
@@ -197,17 +189,12 @@ class PairMatchingEngine:
                 hw1 = np.array([(images[b].valid_size[1],
                                  images[b].valid_size[0])
                                 for _, b in chunk], np.int64)
-                if store is None:
-                    side0 = np.stack([images[a].data for a, _ in chunk])
-                    side1 = np.stack([images[b].data for _, b in chunk])
-                    side0, side1 = side0[..., None], side1[..., None]
-                else:  # the sides' rows in their device's store
-                    rows = [store[j // cfg.batch_size][0]
-                            for j in range(step)]
-                    side0 = np.array([r[a] for r, (a, _) in
-                                      zip(rows, chunk)], np.int64)
-                    side1 = np.array([r[b] for r, (_, b) in
-                                      zip(rows, chunk)], np.int64)
+                # The sides' rows in their device's store.
+                rows = [store[j // cfg.batch_size][0] for j in range(step)]
+                side0 = np.array([r[a] for r, (a, _) in zip(rows, chunk)],
+                                 np.int64)
+                side1 = np.array([r[b] for r, (_, b) in zip(rows, chunk)],
+                                 np.int64)
                 blocks = shard_leading_axis((side0, side1, hw0, hw1),
                                             self.mesh)
             shape = ("step", cfg, devs, step,
@@ -217,11 +204,11 @@ class PairMatchingEngine:
             count("engine/pairs", n)
             count("engine/pad_pairs", step - n)
             with span("engine/launch"):
-                if store is not None:  # each side's features by row
-                    count("engine/view_uses", 2 * n)
-                    blocks = [(_take(feats, i0), _take(feats, i1), h0, h1)
-                              for (i0, i1, h0, h1), (_, feats)
-                              in zip(blocks, store)]
+                count("engine/view_uses", 2 * n)
+                # Each side's views by row.
+                blocks = [(_take(feats, i0), _take(feats, i1), h0, h1)
+                          for (i0, i1, h0, h1), (_, feats)
+                          in zip(blocks, store)]
                 res = [model(*blk) for model, blk in zip(self.models,
                                                          blocks)]
             return chunk, n, res

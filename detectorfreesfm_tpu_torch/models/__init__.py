@@ -2,9 +2,12 @@
 
 `build_matcher(name, **overrides)` is the port of the JAX package's
 models/__init__.py: the matcher module of a family, with keyword overrides
-applied to its config dataclass. Every matcher keeps one contract:
-(image0, image1[, valid_hw0, valid_hw1], return_conf=) -> MatchOutput, and
-the dense (B, L, S) confidence too with `return_conf`.
+applied to its config dataclass. Every matcher is a PairMatcher
+(models/loftr.py) and keeps its contract: `encode_views` (per image:
+frames to the family's views), `match_views` (per pair) and `view_bytes`,
+and `forward`, their composition: (image0, image1[, valid_hw0,
+valid_hw1], return_conf=) -> MatchOutput, and the dense (B, L, S)
+confidence too with `return_conf`.
 """
 
 from __future__ import annotations

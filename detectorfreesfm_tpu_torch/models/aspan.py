@@ -7,13 +7,11 @@ image, a flow head per image (where each cell lands in the other image:
 the expected position under a low-rank global softmax, plus a learned
 residual), and cross-attention restricted to the (2r+1)^2 cells around
 each query's flow target. Matching is the dense dual-softmax; the fused
-kernels serve the LoFTR family only, as in JAX. Same I/O contract as
-DetectorFreeMatcher (models/loftr.py), without the fine stage, and the
-same two stages: `encode_views` (per image: the backbone's coarse path
-and the position encoding, into CoarseViews) and `match_views` (per
-pair: the masks, the rounds and the dual-softmax); `forward` is their
-composition and takes a pair's CoarseViews in place of its frames, so
-the engine computes each view once per call (match/engine.py).
+kernels serve the LoFTR family only, as in JAX. The two stages of
+models/loftr.py's PairMatcher, without the fine stage: `encode_views`
+(per image: the backbone's coarse path and the position encoding, into
+CoarseViews) and `match_views` (per pair: the masks, the rounds and the
+dual-softmax).
 
 The window is discrete: the flow target is clipped to the grid, the
 window's cells rounded (half to even, in both packages) and clipped again,
@@ -54,7 +52,7 @@ from ..ops.flow_expectation import flow_expectation, grid_xy
 from ..utils.profiler import count, span
 from .backbone import ResNetFPN_8_2
 from .layers import Linear
-from .loftr import MatcherConfig, dense_match, grid_valid
+from .loftr import MatcherConfig, PairMatcher, dense_match, grid_valid
 from .position_encoding import add_position_encoding
 from .transformer import EncoderLayer
 
@@ -153,8 +151,8 @@ class FlowCrossAttention(EncoderLayer):
         return self.update(x, msg.to(v.dtype).reshape(b, l, d))
 
 
-class ASpanMatcher(nn.Module):
-    """Flow-guided coarse matcher; DetectorFreeMatcher's interface."""
+class ASpanMatcher(PairMatcher):
+    """Flow-guided coarse matcher."""
 
     def __init__(self, cfg: ASpanConfig = ASpanConfig()):
         super().__init__()
@@ -169,22 +167,6 @@ class ASpanMatcher(nn.Module):
                 self.add_module(f"flow{s}_{i}", FlowHead(d, dt))
                 self.add_module(f"cross{s}_{i}", FlowCrossAttention(
                     d, nh, cfg.span_radius, dt))
-
-    def forward(self, image0, image1, valid_hw0=None, valid_hw1=None,
-                return_conf: bool = False):
-        """image0/1: (B, H, W, 1) in [0, 1], or the CoarseViews of B views
-        each (`encode_views`); valid_hw: (B, 2) int (h, w) live region at
-        full res, optional. Returns the MatchOutput, and the dense
-        (B, L, S) confidence too with `return_conf`. Frames run through
-        the backbone in one batch of 2B (`encode_views`), then
-        `match_views` matches the two sides."""
-        if not isinstance(image0, CoarseViews):
-            b = image0.shape[0]
-            views = self.encode_views(torch.cat([image0, image1], dim=0))
-            image0 = CoarseViews(views.coarse[:b])
-            image1 = CoarseViews(views.coarse[b:])
-        return self.match_views(image0, image1, valid_hw0, valid_hw1,
-                                return_conf)
 
     def encode_views(self, images) -> CoarseViews:
         """The per-image stage: (N, H, W, 1) frames in [0, 1] to their
@@ -205,7 +187,7 @@ class ASpanMatcher(nn.Module):
                     return_conf: bool = False):
         """The pair stage: the masks, the rounds and the dense
         dual-softmax over the two sides' CoarseViews (B views each);
-        arguments and outputs as `forward`'s."""
+        arguments and outputs as PairMatcher.forward's."""
         cfg = self.cfg
         b, h8, w8, d = view0.coarse.shape
         c0 = view0.coarse.reshape(b, h8 * w8, d)

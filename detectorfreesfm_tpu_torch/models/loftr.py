@@ -9,10 +9,11 @@ soft-argmax. Images enter NHWC (B, H, W, 1) in [0, 1], as in JAX; matches
 leave as fixed-capacity top-K sets in network-input pixels. The training
 paths are JAX's too: `return_conf` also returns the dense (B, L, S)
 confidence (and forces the dense path), and `fine_at` runs the same fine
-head at teacher-forced coarse cells. `forward` is the composition of the
-per-image stage (`encode_views`: the backbone and the position encoding)
-and the pair stage (`match_views`), and takes a pair's ViewFeatures in
-place of its frames: the engine computes each view once per call.
+head at teacher-forced coarse cells. `PairMatcher` is the two-stage
+contract every matcher family keeps: here the per-image stage
+(`encode_views`) is the backbone and the position encoding, into
+ViewFeatures, and the pair stage (`match_views`) the rest; `forward` is
+their composition, and the engine computes each view once per call.
 
 `compute_dtype="bfloat16"` is JAX's bf16 path (models/layers.py): fp32
 parameters; the image, backbone, position encoding and both transformers
@@ -163,7 +164,33 @@ class FinePreprocessAndMatch(nn.Module):
         return delta_fine * 2.0, std  # full-res px
 
 
-class DetectorFreeMatcher(nn.Module):
+class PairMatcher(nn.Module):
+    """A matcher in two stages, the contract of every family and all that
+    the engine (match/engine.py) knows of one: `encode_views`, per image,
+    (N, H, W, 1) frames in [0, 1] to the family's views (a NamedTuple of
+    tensors with a leading view axis); `view_bytes(h, w)`, the bytes of
+    one view at an h x w frame; `match_views(view0, view1, valid_hw0,
+    valid_hw1, return_conf, ...)`, per pair. `forward` is their
+    composition."""
+
+    def forward(self, image0, image1, valid_hw0=None, valid_hw1=None,
+                return_conf: bool = False, **pair_args):
+        """image0/1: (B, H, W, 1) in [0, 1], or the views of B views each
+        (`encode_views`); valid_hw: (B, 2) int (h, w) live region at full
+        res, optional. Frames run through the per-image stage in one batch
+        of 2B, then `match_views` matches the two sides, with the family's
+        own `pair_args` (LoFTR's `fine_at`). Returns the MatchOutput, and
+        the dense (B, L, S) confidence too with `return_conf`."""
+        if isinstance(image0, torch.Tensor):
+            b = image0.shape[0]
+            views = self.encode_views(torch.cat([image0, image1], dim=0))
+            image0 = type(views)(*(v[:b] for v in views))
+            image1 = type(views)(*(v[b:] for v in views))
+        return self.match_views(image0, image1, valid_hw0, valid_hw1,
+                                return_conf, **pair_args)
+
+
+class DetectorFreeMatcher(PairMatcher):
     """Full matcher: images in, fixed-capacity subpixel matches out.
 
     The fine head is always built, so a checkpoint converts the same way
@@ -182,24 +209,6 @@ class DetectorFreeMatcher(nn.Module):
             layer_names=("self", "cross") * cfg.n_coarse_layers,
             attention="linear", compute_dtype=cfg.dtype)
         self.fine_match = FinePreprocessAndMatch(cfg)
-
-    def forward(self, image0, image1, valid_hw0=None, valid_hw1=None,
-                return_conf: bool = False, fine_at=None):
-        """image0/1: (B, H, W, 1) in [0, 1], or the ViewFeatures of B
-        views each (`encode_views`); valid_hw: (B, 2) int (h, w) live
-        region at full res, optional. With `return_conf` the dense
-        (B, L, S) confidence comes back too; with `fine_at`, (idx0, idx1)
-        int (B, Kf) coarse cells, so do the fine head's (delta, std) there:
-        out[, conf][, (delta, std)], as in JAX. Frames run through the
-        shared backbone in one batch of 2B (`encode_views`), then
-        `match_views` matches the two sides."""
-        if not isinstance(image0, ViewFeatures):
-            b = image0.shape[0]
-            views = self.encode_views(torch.cat([image0, image1], dim=0))
-            image0 = ViewFeatures(views.coarse[:b], views.fine[:b])
-            image1 = ViewFeatures(views.coarse[b:], views.fine[b:])
-        return self.match_views(image0, image1, valid_hw0, valid_hw1,
-                                return_conf, fine_at)
 
     def encode_views(self, images) -> ViewFeatures:
         """The per-image stage: (N, H, W, 1) frames in [0, 1] to their
@@ -225,7 +234,10 @@ class DetectorFreeMatcher(nn.Module):
                     return_conf: bool = False, fine_at=None):
         """The pair stage: the masks, the coarse transformer, the
         dual-softmax and the fine stage over the two sides' ViewFeatures
-        (B views each); arguments and outputs as `forward`'s."""
+        (B views each); arguments and outputs as `forward`'s. With
+        `fine_at`, (idx0, idx1) int (B, Kf) coarse cells, the fine head's
+        (delta, std) there come back too: out[, conf][, (delta, std)], as
+        in JAX."""
         cfg = self.cfg
         c0, c1 = view0.coarse, view1.coarse
         dev = c0.device

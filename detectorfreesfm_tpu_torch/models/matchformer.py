@@ -7,8 +7,12 @@ cross-attention between the two images ("extract-and-match"), with the
 keys and values average-pooled by the stage's reduction ratio (PVT's
 spatially-reduced attention). Dual-softmax matching runs on the last
 stage's 1/8 features, dense, as in JAX. Both images of a pair share one
-frame size. Same I/O contract as DetectorFreeMatcher (models/loftr.py),
-without the fine stage.
+frame size. The two stages of models/loftr.py's PairMatcher, without the
+fine stage: the encoder attends across the two images, so there is no
+per-image stage, and a view is its frame (FrameViews; `encode_views`
+returns the frames as given); `match_views` is the whole network on the
+two sides' frames. Through the engine each step's frames come from its
+view store instead of being stacked per pair, with the same results.
 
 The queries are chunked by 4096, as in JAX, so a stage-0 logits tensor is
 (B, heads, 4096, M), not (B, heads, N, M) (15 GB per attention at 832 px).
@@ -27,6 +31,7 @@ row the same products).
 from __future__ import annotations
 
 import dataclasses
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -36,7 +41,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..device import set_backends
 from .layers import Conv2d, LayerNorm, Linear
-from .loftr import MatcherConfig, dense_match, grid_valid
+from .loftr import MatcherConfig, PairMatcher, dense_match, grid_valid
 from .position_encoding import add_position_encoding
 from .transformer import LN_EPS
 
@@ -48,6 +53,12 @@ class MatchFormerConfig(MatcherConfig):
     stage_dims: tuple = (64, 128, 256)   # strides 2, 4, 8
     stage_blocks: tuple = (1, 2, 2)      # (self, cross) pairs per stage
     sr_ratios: tuple = (8, 4, 2)         # K/V spatial reduction per stage
+
+
+class FrameViews(NamedTuple):
+    """MatchFormer's views: the frames as staged."""
+
+    frames: torch.Tensor   # (N, H, W, 1) in [0, 1]
 
 
 def avg_pool(x, r: int):
@@ -133,9 +144,8 @@ class SRAttention(nn.Module):
         return self.ln2(y + h)
 
 
-class MatchFormerMatcher(nn.Module):
-    """Extract-and-match hierarchical matcher; DetectorFreeMatcher's
-    interface."""
+class MatchFormerMatcher(PairMatcher):
+    """Extract-and-match hierarchical matcher."""
 
     def __init__(self, cfg: MatchFormerConfig = MatchFormerConfig()):
         super().__init__()
@@ -152,11 +162,21 @@ class MatchFormerMatcher(nn.Module):
                                     SRAttention(dims, cfg.nhead, sr, dt))
             cin = dims
 
-    def forward(self, image0, image1, valid_hw0=None, valid_hw1=None,
-                return_conf: bool = False):
-        """image0/1: (B, H, W, 1) in [0, 1]; valid_hw: (B, 2) int (h, w)
-        live region at full res, optional. Returns the MatchOutput, and
-        the dense (B, L, S) confidence too with `return_conf`."""
+    def encode_views(self, images) -> FrameViews:
+        """No per-image stage: (N, H, W, 1) frames are their own views."""
+        return FrameViews(images)
+
+    def view_bytes(self, h: int, w: int) -> int:
+        """Bytes of one view, the fp32 frame that the engine stages."""
+        return h * w * 4
+
+    def match_views(self, view0: FrameViews, view1: FrameViews,
+                    valid_hw0=None, valid_hw1=None,
+                    return_conf: bool = False):
+        """The whole network on the two sides' frames (B each); arguments
+        and outputs as PairMatcher.forward's. The two sides run as one
+        batch of 2B."""
+        image0, image1 = view0.frames, view1.frames
         cfg = self.cfg
         b = image0.shape[0]
         x = torch.cat([image0, image1], dim=0).to(cfg.dtype).permute(

@@ -314,47 +314,79 @@ def test_view_store_in_groups_equals_one_group(four_small_views,
 @pytest.mark.parametrize("arch", ["matchformer", "aspan"])
 def test_matchers_without_a_per_image_stage_run_whole(four_small_views,
                                                       arch):
-    """MatchFormer (its encoder attends across the two images) keeps the
-    per-pair path: no view store is counted. ASpan, whose per-image stage
-    is its backbone's coarse path, takes the view store: the 3 views of 2
-    pairs through the per-image stage once each (batch 1), 4 sides read
-    from the store, and no fine map in it. Either way the engine's
-    matches of the 2 pairs at 128 px equal the matcher's `forward` on
-    each pair (batch 1) bit for bit."""
-    from detectorfreesfm_tpu_torch.match.engine import (EngineConfig,
-                                                        PairMatchingEngine)
+    """Every family takes the view store. MatchFormer (its encoder attends
+    across the two images) has no per-image stage: its views are the
+    staged frames, and its whole network runs in the pair stage. ASpan's
+    per-image stage is its backbone's coarse path, with no fine map.
+    Either way the 3 views of 2 pairs go through `encode_views` once each
+    (batch 1), 4 sides are read from the store, and the engine's matches
+    of the 2 pairs at 128 px equal the matcher's `forward` on each pair
+    (batch 1) bit for bit. The engine names no family."""
+    import inspect
+
+    from detectorfreesfm_tpu_torch.match import engine as engine_mod
     from detectorfreesfm_tpu_torch.utils.checkpoint import load_arch_params
 
+    source = inspect.getsource(engine_mod)
+    for family_test in ("LOFTR_FAMILY", "hasattr(self.model",
+                        "store is None"):
+        assert family_test not in source, family_test
     images, pairs = four_small_views
     pairs = pairs[:2]
     params = (load_arch_params(ALT_WEIGHTS[arch], arch)
               if arch in ALT_WEIGHTS else None)
-    engine = PairMatchingEngine(EngineConfig(matcher=arch, img_resize=128),
-                                params, device="cpu")
+    engine = engine_mod.PairMatchingEngine(
+        engine_mod.EngineConfig(matcher=arch, img_resize=128), params,
+        device="cpu")
     stores = []
-    if arch == "aspan":
-        build = engine._build_store
-        engine._build_store = lambda *a: stores.append(build(*a)) or \
-            stores[-1]
-    else:
-        assert not hasattr(engine.model, "encode_views")
+    build = engine._build_store
+    engine._build_store = lambda *a: stores.append(build(*a)) or stores[-1]
     out, counters = _profiled(lambda: engine.match_pairs(pairs, images))
     assert counters["engine/pairs"] == 2
+    assert counters["engine/views"] == 3
+    assert counters["engine/view_uses"] == 4
+    ((rows, feats),), = stores
+    assert list(rows) == ["view_0", "view_1", "view_2"]
     if arch == "aspan":
-        assert counters["engine/views"] == 3
-        assert counters["engine/view_uses"] == 4
-        ((rows, feats),), = stores
-        assert list(rows) == ["view_0", "view_1", "view_2"]
         assert type(feats).__name__ == "CoarseViews"
         assert [tuple(f.shape) for f in feats] == [(3, 16, 16, 256)]
         assert engine.model.view_bytes(128, 128) == 16 * 16 * 256 * 4
     else:
-        assert "engine/views" not in counters
-        assert "engine/view_uses" not in counters
+        assert type(feats).__name__ == "FrameViews"
+        assert [tuple(f.shape) for f in feats] == [(3, 128, 128, 1)]
+        for name, r in rows.items():
+            np.testing.assert_array_equal(feats.frames[r, ..., 0].numpy(),
+                                          images[name].data)
+        assert engine.model.view_bytes(128, 128) == 128 * 128 * 4
     for p in pairs:
         for got, want in zip((out[p][k] for k in ("kpts0", "kpts1", "conf")),
                              _pair_forward(engine.model, images, p, None)):
             np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("name", ["loftr", "LoFTR", "aspan", "matchformer"])
+def test_engine_builds_every_family_from_its_config(name):
+    """The engine builds its matcher through models.build_matcher with
+    every field of the engine's MatcherConfig, whatever the family and
+    the name's case: the LoFTR family's model is DetectorFreeMatcher on
+    exactly that config, the others carry its fields beside their own."""
+    import dataclasses
+
+    from detectorfreesfm_tpu_torch.match.engine import (EngineConfig,
+                                                        PairMatchingEngine)
+
+    cfg = EngineConfig(matcher=name, img_resize=64, match_threshold=0.3,
+                       max_matches=77, fused_matching=True,
+                       fine_enabled=name.lower() == "loftr")
+    model = PairMatchingEngine(cfg, None, device="cpu").model
+    want = dataclasses.asdict(cfg.matcher_config())
+    got = dataclasses.asdict(model.cfg)
+    assert {k: got[k] for k in want} == want
+    assert type(model).__name__ == {
+        "loftr": "DetectorFreeMatcher", "aspan": "ASpanMatcher",
+        "matchformer": "MatchFormerMatcher"}[name.lower()]
+    if name.lower() == "loftr":
+        assert model.cfg == cfg.matcher_config()
 
 
 _IMPORT_PROBE = r"""
@@ -446,11 +478,10 @@ loop.refine_reconstruction(
 assert info["iterations_completed"] == 1, info
 # The scene pipeline and the reconstruct verb on a tiny PNG scene from
 # cached matches, as on the GPU machine: no h5py (the stores fall back to
-# npz), no PIL, and the native image loader disabled (PNG through numpy).
+# npz), no PIL, and PNG through numpy.
 sys.modules["h5py"] = sys.modules["PIL"] = None  # imports of them fail
 from detectorfreesfm_tpu_torch import cli, pipeline
 from detectorfreesfm_tpu_torch.data import images, png
-images._native_error = "disabled for this probe"
 d = tempfile.mkdtemp()
 for out in ("out", "out_cli"):
     scene = os.path.join(d, "scene")
@@ -508,10 +539,9 @@ def test_port_imports_no_jax_or_missing_packages():
     """In a fresh interpreter (conftest imports jax into this one), the
     port's forward on the CPU, every geometry, store and estimator module,
     the mapper and one refinement iteration, the scene pipeline and the
-    reconstruct verb (on PNG files, with h5py and PIL blocked and the
-    native image loader off), and the evaluation modules, run once at a
-    tiny size, pull in none of
-    jax, flax, msgpack, h5py, PIL or the JAX package, and scipy only where
+    reconstruct verb (on PNG files, with h5py and PIL blocked), and the
+    evaluation modules, run once at a tiny size, pull in none of jax,
+    flax, msgpack, h5py, PIL or the JAX package, and scipy only where
     merge_tracks needs it."""
     code = _IMPORT_PROBE.format(repo=REPO, weights=WEIGHTS)
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,

@@ -1,5 +1,5 @@
-"""The port's image IO (data/png.py with csrc/pngfilter.cpp, data/images.py
-and the native loader csrc/imageloader.cpp) against PIL and the JAX
+"""The port's image IO (data/png.py with csrc/pngfilter.cpp, and
+data/images.py with its png and jpeg backends) against PIL and the JAX
 package's data/images.py, on files made from a seed (the JPEG decoder,
 csrc/jpeg.cpp, is held on committed files in test_torch_jpeg.py).
 Tolerances: pixels and sizes exact; load_gray atol 1e-6 against the JAX
@@ -7,7 +7,6 @@ native loader (both resize in double precision and round once to
 float32), exact for JPEG."""
 
 import io
-import os
 import struct
 import zlib
 
@@ -291,7 +290,7 @@ def _same_loaded(got, ref, atol):
 
 
 @pytest.mark.parametrize("i", range(4))
-@pytest.mark.parametrize("backend", ["png", "native", "auto"])
+@pytest.mark.parametrize("backend", ["png", "auto"])
 def test_load_gray_png_equals_jax_native(files, i, backend):
     """PNG through each port backend against the JAX native loader, at
     several (long_side, df, pad_to); "auto" takes the png path."""
@@ -301,39 +300,34 @@ def test_load_gray_png_equals_jax_native(files, i, backend):
         got = TI.load_gray(files[f"png{i}"], long_side, df, pad,
                            backend=backend)
         _same_loaded(got, ref, 1e-6)
-        assert TI.last_backend == ("png" if backend == "auto" else backend)
+        assert TI.last_backend == "png"
 
 
+@pytest.mark.parametrize("backend", ["jpeg", "auto"])
 @pytest.mark.parametrize("kind", ["jpg", "prog"])
-def test_load_gray_jpeg_equals_jax_native(files, kind):
-    """Baseline and progressive JPEG through the native path: exact."""
+def test_load_gray_jpeg_equals_jax_native(files, kind, backend):
+    """Baseline and progressive JPEG through the jpeg path, named or taken
+    by "auto", against the JAX native loader (libjpeg): exact."""
     for i in range(4):
         for long_side, df, pad in RESIZES:
             ref = JI.load_gray(files[f"{kind}{i}"], long_side, df, pad,
                                backend="native")
             got = TI.load_gray(files[f"{kind}{i}"], long_side, df, pad,
-                               backend="native")
+                               backend=backend)
             _same_loaded(got, ref, 0.0)
+            assert TI.last_backend == "jpeg"
 
 
 def test_image_size_equals_pil(files):
-    """From the header alone, in Python and through the native library,
-    for PNG, baseline and progressive JPEG."""
-    import ctypes
-
-    lib = TI._load_native()
+    """From the header alone, for PNG, baseline and progressive JPEG."""
     for path in files.values():
         with Image.open(path) as im:
             assert TI.image_size(path) == im.size, path
-        wh = np.zeros(2, np.int32)
-        assert lib.image_size(path.encode(), wh.ctypes.data_as(
-            ctypes.POINTER(ctypes.c_int))) == 0
-        assert tuple(wh) == TI.image_size(path)
 
 
 def test_sample_colors_equal_jax(files):
     """Nearest-pixel colours as the JAX package's PIL path: PNG through
-    both backends, JPEG through the native one; points off the image
+    "auto" and the png backend, JPEG through "auto"; points off the image
     clamp to its border."""
     rng = np.random.default_rng(RNG_SEED)
     for key, path in files.items():
@@ -341,19 +335,18 @@ def test_sample_colors_equal_jax(files):
             w, h = im.size
         xy = rng.uniform(-5, 1.1 * max(w, h), (300, 2))
         ref = JI.sample_colors(path, xy)
-        np.testing.assert_array_equal(TI.sample_colors(path, xy,
-                                                       backend="native"), ref)
+        np.testing.assert_array_equal(TI.sample_colors(path, xy), ref)
         if key.startswith("png"):
             np.testing.assert_array_equal(
                 TI.sample_colors(path, xy, backend="png"), ref)
 
 
-def test_auto_without_the_native_loader(files, monkeypatch):
-    """With the library unavailable (no libjpeg, as on the card), "auto"
-    still reads PNG with the png path and JPEG with the jpeg path, equal
-    to the JAX native loader and PIL; "native" raises naming libjpeg."""
-    monkeypatch.setattr(TI, "_load_native", lambda: None)
-    monkeypatch.setattr(TI, "_native_error", "RuntimeError: g++ failed")
+def test_auto_without_the_native_loader(files):
+    """With no system image library (the port has no libjpeg loader, as
+    the card has no libjpeg), "auto" reads PNG with the png path and JPEG
+    (baseline and progressive) with the jpeg path, equal to the JAX
+    native loader and PIL; a backend named for the wrong format refuses
+    the file."""
     got = TI.load_gray(files["png1"], 256, 8, 256)
     assert TI.last_backend == "png"
     _same_loaded(got, JI.load_gray(files["png1"], 256, 8, 256,
@@ -366,23 +359,45 @@ def test_auto_without_the_native_loader(files, monkeypatch):
         xy = np.array([[0.0, 0.0], [40.5, 17.2], [1e4, 3.0]])
         np.testing.assert_array_equal(TI.sample_colors(files[key], xy),
                                       JI.sample_colors(files[key], xy))
-    with pytest.raises(RuntimeError, match="libjpeg"):
-        TI.load_gray(files["jpg1"], 256, 8, 256, backend="native")
-    with pytest.raises(RuntimeError, match="unavailable"):
-        TI.load_gray(files["png1"], 256, 8, 256, backend="native")
     with pytest.raises(ValueError, match="not a PNG"):
         TI.load_gray(files["jpg1"], 256, 8, 256, backend="png")
+    with pytest.raises(ValueError, match="not a JPEG"):
+        TI.load_gray(files["png1"], 256, 8, 256, backend="jpeg")
+
+
+@pytest.mark.parametrize("fmt", ["BMP", "TIFF", "GIF"])
+def test_auto_refuses_neither_png_nor_jpeg(tmp_path, fmt):
+    """A file that is neither PNG nor JPEG raises ValueError naming it,
+    from load_gray and decode_rgb alike, before anything is decoded."""
+    path = str(tmp_path / f"photo.{fmt.lower()}")
+    Image.fromarray(_photo(24, 32, 5)).save(path, fmt)
+    for read in (lambda: TI.load_gray(path, 64, 8, 64),
+                 lambda: TI.decode_rgb(path)):
+        TI.last_backend = None
+        with pytest.raises(ValueError, match="neither PNG nor JPEG") as e:
+            read()
+        assert path in str(e.value)
+        assert TI.last_backend is None
+
+
+def test_native_backend_is_unknown(files):
+    """The port has no "native" backend: naming it raises the unknown
+    backend error, and BACKENDS lists the two decoders and "auto"."""
+    assert TI.BACKENDS == ("auto", "png", "jpeg")
+    for path in (files["png1"], files["jpg1"]):
+        with pytest.raises(ValueError, match="unknown image backend"):
+            TI.load_gray(path, 256, 8, 256, backend="native")
+        with pytest.raises(ValueError, match="unknown image backend"):
+            TI.decode_rgb(path, backend="native")
 
 
 def test_auto_reads_alpha_png_that_native_refuses(tmp_path):
-    """The native loader refuses alpha PNGs (as the JAX package's, which
-    then falls back to PIL); "auto" reads them with the png path, as
-    PIL's convert("L") does (alpha ignored)."""
+    """The JAX native loader refuses alpha PNGs (the JAX package then
+    falls back to PIL); "auto" reads them with the png path, as PIL's
+    convert("L") does (alpha ignored)."""
     arr = _photo(40, 50, 3, 4)
     path = str(tmp_path / "rgba.png")
     Image.fromarray(arr, "RGBA").save(path)
-    with pytest.raises(RuntimeError, match="rc=-2"):
-        TI.load_gray(path, 64, 8, 64, backend="native")
     got = TI.load_gray(path, 64, 8, 64)
     assert TI.last_backend == "png"
     ref = JI.load_gray(path, 64, 8, 64, backend="pil")
@@ -392,13 +407,3 @@ def test_auto_reads_alpha_png_that_native_refuses(tmp_path):
     np.testing.assert_allclose(
         TI.resample_axis(TI.resample_axis(lum, 64, 1), 48, 0),
         got.data[:48, :64], rtol=0, atol=0)
-
-
-def test_native_library_builds_into_build_native():
-    """Built by g++ at first use under build/native/, never into native/."""
-    assert TI._load_native() is not None, TI.native_error()
-    path = TI.library_path()
-    assert path.exists() and path.parent.name == "native"
-    assert path.parent.parent.name == "build"
-    assert os.path.dirname(os.path.dirname(str(path))) != os.path.dirname(
-        TI.SOURCE)

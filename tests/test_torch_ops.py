@@ -176,7 +176,8 @@ def test_pairs_and_image_helpers_equal_jax(tmp_path):
     path = str(tmp_path / "img.png")
     arr = np.random.default_rng(2).integers(0, 255, (90, 130), np.uint8)
     Image.fromarray(arr).save(path)
-    # Both packages' default backend: the native loader where it builds.
+    # Both packages' default backend: the port's png path, the JAX
+    # package's native loader where it builds.
     ours = images.load_gray(path, long_side=64, pad_to=64)
     ref = jax_images.load_gray(path, long_side=64, pad_to=64)
     np.testing.assert_array_equal(ours.data, ref.data)
