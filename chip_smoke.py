@@ -9,8 +9,8 @@ standard library, numpy, torch and the port. Phases, one JSON line each:
   device   card name and power limit
   build    nvcc of the port's CUDA sources into build/torch_kernels/, and
            the count of tensor-core (HGMMA) instructions in the library;
-           the flow expectation's library holds FFMAs and no HMMA or
-           HGMMA (fp32 on the CUDA cores)
+           the flow expectation's and the span attention's libraries
+           hold FFMAs and no HMMA or HGMMA (fp32 on the CUDA cores)
   kernels  each kernel against its plain torch version at a ragged shape,
            the main path's (B=2, L=S=10816, C=256) and the 1600 px one
            (B=1, L=S=40000), timed at the last two; planted ties across
@@ -18,7 +18,11 @@ standard library, numpy, torch and the port. Phases, one JSON line each:
            expectation (ASpan's flow head) at a ragged 13 x 17 grid and at
            the ASpan cell's shape (B = 8, 104 x 104), timed there beside
            its fp32 FFMA bound, its plain version and
-           scaled_dot_product_attention of the same function
+           scaled_dot_product_attention of the same function; the span
+           attention (ASpan's 5 x 5 window attention) in fp32 and bf16 at
+           a ragged 13 x 17 grid and at the ASpan cell's shape (B = 8,
+           104 x 104), timed there beside its memory bound and its plain
+           gather/einsum chain
   weights  the bundled r5 matcher through the port's converter
   main     6 exhaustive pairs of a 832 px synthetic scene, coarse_fine,
            through PairMatchingEngine with the fused kernels, held to the
@@ -122,9 +126,10 @@ standard library, numpy, torch and the port. Phases, one JSON line each:
            the fresh tolerance), checkpoints read back strictly; the
            trained MatchFormer served by `reconstruct --matcher-arch
            matchformer --refine-iters 0` (completion only); 0 launches of
-           either pass on every run; the flow expectation kernel launched
-           by every ASpan flow head (8 a batch on main's pairs; on run A;
-           in ASpan's training steps) and never by MatchFormer; reported:
+           either pass on every run; the flow expectation and span
+           attention kernels launched by every ASpan flow head and cross
+           layer (8 each a batch on main's pairs; on run A; in ASpan's
+           training steps) and never by MatchFormer; reported:
            warm pairs/s, device ms of a batch, step seconds and peak
            memory; full report in build/smoke_alt/alt.json
   mesh     parallel/mesh.py on the card, reusing main's engine results,
@@ -196,6 +201,10 @@ ETH3D_SHAPE = dict(b=1, l=40000, s=40000, c=256)  # 1600 px, one pair
 FLOW_SHAPE = dict(b=8, h=104, w=104)
 FLOW_RAGGED = dict(b=2, h=13, w=17)
 FLOW_TOL = {"ragged": 5e-5, "cell": 1e-3}
+# The span attention (ops/span_attention.py): one cross layer of the ASpan
+# cell's batch of 8 pairs at 832 px, and a ragged grid.
+SPAN_SHAPE = dict(b=8, h=104, w=104)
+SPAN_RAGGED = dict(b=2, h=13, w=17)
 # Device kernels of csrc/dual_softmax.cu, as the profiler names them.
 DSM_KERNELS = ("pass1_kernel", "pass2_kernel", "combine1_kernel",
                "combine2_kernel")
@@ -371,6 +380,53 @@ def check_flow_kernel(shape, seed, tol, timed):
             library_ms=cuda_ms(
                 lambda: torch.nn.functional.scaled_dot_product_attention(
                     q, k, grid, scale=0.125), 3))
+    return out
+
+
+def check_span_kernel(shape, seed, timed):
+    """The span attention kernel against its plain gather/einsum chain on
+    seeded random q, k, v (logits up to ~5), in fp32 (within 1e-5 of the
+    largest value) and bf16 (within one bf16 ulp of it), on the windows
+    of a flow that scales the grid by 1.1 about its centre plus N(0, 1)
+    cells of noise (neighbours' windows overlap, as the model's do; on the
+    ragged grid windows clamp at the edges); with timed, its time in each
+    dtype beside its bound (q, k, v and the message once, and the int64
+    cells, at PEAK_BYTES) and the plain chain's."""
+    from detectorfreesfm_tpu_torch.models.aspan import FlowCrossAttention
+    from detectorfreesfm_tpu_torch.ops import flow_expectation as F
+    from detectorfreesfm_tpu_torch.ops import span_attention as S
+
+    b, h, w = shape["b"], shape["h"], shape["w"]
+    l = h * w
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v = (torch.randn(b, l, 256, device="cuda", generator=g)
+               for _ in "qkv")
+    grid = F.grid_xy(l, w, q.device)
+    centre = torch.tensor([(w - 1) / 2, (h - 1) / 2], device="cuda")
+    flow = (0.1 * (grid - centre) +
+            torch.randn(b, l, 2, device="cuda", generator=g))
+    cells = FlowCrossAttention(256, 8, 2).window_cells(flow, (h, w))
+    out = dict(shape=shape)
+    for dt in (torch.float32, torch.bfloat16):
+        qd, kd, vd = (t.to(dt) for t in (q, k, v))
+        plain = S.span_attention_plain(qd, kd, vd, cells, 8)
+        err = (S.span_attention(qd, kd, vd, cells, 8).float() -
+               plain.float()).abs().max().item()
+        scale = plain.abs().max().item()
+        tol = (1e-5 if dt == torch.float32 else 2 ** -7) * scale
+        check(err <= tol, "span_attention vs plain", shape, dt, err, tol)
+        name = str(dt).split(".")[-1]
+        out[name] = dict(max_abs_err=err, tol=tol)
+        if timed:
+            nbytes = (4.0 * b * l * 256 * qd.element_size() +
+                      8.0 * cells.numel())
+            bound_ms = nbytes / PEAK_BYTES * 1e3
+            ms = cuda_ms(lambda: S.span_attention(qd, kd, vd, cells, 8), 20)
+            out[name].update(
+                ms=ms, bytes=nbytes, bound_ms=bound_ms, bound_by="bytes",
+                share_of_bound=bound_ms / ms,
+                plain_ms=cuda_ms(lambda: S.span_attention_plain(
+                    qd, kd, vd, cells, 8), 3))
     return out
 
 
@@ -3678,6 +3734,13 @@ def flow_launches():
     return flow_expectation.launches["flow_expectation"]
 
 
+def span_launches():
+    """Launches of the span attention kernel so far in the process."""
+    from detectorfreesfm_tpu_torch.ops import span_attention
+
+    return span_attention.launches["span_attention"]
+
+
 def main_scene():
     """Main's scene: names, LoadedImages, exhaustive pairs and the true
     (K, q, t)."""
@@ -3721,14 +3784,16 @@ def alt_main(params, dtype, scene):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
-    flow0 = flow_launches()
+    flow0, span0 = flow_launches(), span_launches()
     t0 = time.time()
     raw = engine.match_pairs(pairs, images)
     torch.cuda.synchronize()
     warm_s = time.time() - t0
     launches = read_launches()
     flow = flow_launches() - flow0
-    # Every flow head of every batch: 2 directions x the rounds.
+    span = span_launches() - span0
+    # Every flow head and cross layer of every batch: 2 directions x the
+    # rounds.
     want_flow = (2 * engine.model.cfg.n_flow_layers *
                  -(-len(pairs) // engine.cfg.batch_size))
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -3744,7 +3809,8 @@ def alt_main(params, dtype, scene):
     out = dict(total_valid=sum(counts.values()), jax_total_valid=jax_valid,
                median_epipolar_px=float(np.median(np.concatenate(errs))),
                jax_median_epipolar_px=jax_median, valid_per_pair=counts,
-               launches=launches, flow_launches=flow, warm_s=warm_s,
+               launches=launches, flow_launches=flow, span_launches=span,
+               warm_s=warm_s,
                pairs_per_s=len(pairs) / warm_s, batch2_forward_ms=batch_ms,
                max_memory_allocated_gib=peak, profile_one_batch=profile)
     check(set(raw) == set(pairs), "alt main: pairs missing")
@@ -3756,6 +3822,8 @@ def alt_main(params, dtype, scene):
           "epipolar median", out["median_epipolar_px"], jax_median)
     check(launches == NO_LAUNCHES, "alt main", dtype, "launches", launches)
     check(flow == want_flow, "alt main", dtype, "flow kernel launches", flow,
+          want_flow)
+    check(span == want_flow, "alt main", dtype, "span kernel launches", span,
           want_flow)
     return out
 
@@ -3825,11 +3893,12 @@ def alt_phase():
     out = os.path.join(work, "out_a")
     reset_launches()
     torch.cuda.reset_peak_memory_stats()
-    flow0 = flow_launches()
+    flow0, span0 = flow_launches(), span_launches()
     got, run_a = run_reconstruct(cli.main, scene, out, "--fused", "on",
                                  *ALT_ARGS)
     got["launches"] = read_launches()
     run_a_flow = flow_launches() - flow0
+    run_a_span = span_launches() - span0
     got["missing_files"] = written_files(out)
     (_key, engine), = pipeline._ENGINE_CACHE.items()
     check(type(engine.model).__name__ == "ASpanMatcher"
@@ -3839,6 +3908,7 @@ def alt_phase():
     del engine
     report["run_a"] = dict(
         run_a, launches=got["launches"], flow_launches=run_a_flow,
+        span_launches=run_a_span,
         max_memory_allocated_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
         n_registered=got["result"]["n_registered"],
         n_points=got["result"]["n_points"],
@@ -3857,12 +3927,13 @@ def alt_phase():
         reset_launches()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        flow0 = flow_launches()
+        flow0, span0 = flow_launches(), span_launches()
         t1 = time.time()
         rc = cli.main(alt_train_argv(data, os.path.join(work, "train"),
                                      arch) + ["--log-json", log])
         wall = time.time() - t1
         flow = flow_launches() - flow0
+        span = span_launches() - span0
         check(rc == 0, "alt train", arch, "exit code", rc)
         with open(log) as f:
             steps = [json.loads(ln) for ln in f]
@@ -3877,7 +3948,8 @@ def alt_phase():
             max_memory_allocated_gib=torch.cuda.max_memory_allocated()
             / 2 ** 30, losses=[s["loss"] for s in steps],
             grad_norms=[s["grad_norm"] for s in steps],
-            launches=read_launches(), flow_launches=flow, checkpoint=ckpt,
+            launches=read_launches(), flow_launches=flow,
+            span_launches=span, checkpoint=ckpt,
             checkpoint_leaves=len(back),
             jax=JAX_TRAIN[f"train_matcher_{arch}"])
     laps["train_s"] = time.time() - t0
@@ -3910,17 +3982,19 @@ def alt_phase():
         json.dump(dict(report, got=got), f, indent=1, default=float)
 
     _check_reconstruct_gates(got, JAX_RECONSTRUCT_ASPAN, NO_LAUNCHES)
-    check(run_a_flow > 0, "run A with ASpan: flow kernel launches",
-          run_a_flow)
+    check(run_a_flow > 0 and run_a_span == run_a_flow,
+          "run A with ASpan: flow and span kernel launches", run_a_flow,
+          run_a_span)
     for arch, g in report["train"].items():
         check(g["launches"] == NO_LAUNCHES, "alt train", arch, "launches",
               g["launches"])
-    # ASpan trains through the kernel's autograd Function: 2 directions x
-    # 4 rounds a step.
-    check(report["train"]["aspan"]["flow_launches"] >= 2 * 4 * TRAIN_STEPS
-          and report["train"]["matchformer"]["flow_launches"] == 0,
-          "alt train: flow kernel launches",
-          {a: g["flow_launches"] for a, g in report["train"].items()})
+    # ASpan trains through the kernels' autograd Functions: 2 directions
+    # x 4 rounds a step, for the flow heads and the cross layers.
+    for key in ("flow_launches", "span_launches"):
+        check(report["train"]["aspan"][key] >= 2 * 4 * TRAIN_STEPS
+              and report["train"]["matchformer"][key] == 0,
+              "alt train: kernel launches", key,
+              {a: g[key] for a, g in report["train"].items()})
     _check_alt_train_gates(report["train"], JAX_TRAIN)
     serve = report["serve_matchformer"]
     check(serve["result"] is not None and serve["matches_stored"]
@@ -4433,7 +4507,7 @@ def main():
         return dp_reference(sys.argv[sys.argv.index("--dp-reference") + 1])
     from detectorfreesfm_tpu_torch.device import set_fp32_backends
     from detectorfreesfm_tpu_torch.ops import (_build, flow_expectation,
-                                               fused_dsm)
+                                               fused_dsm, span_attention)
     from detectorfreesfm_tpu_torch.utils.checkpoint import load_matcher_params
 
     set_fp32_backends()  # plain versions' matmuls in full fp32, as the kernels
@@ -4460,19 +4534,24 @@ def main():
     _build.load(fused_dsm.SOURCE)
     flow_so = _build.build(flow_expectation.SOURCE)
     _build.load(flow_expectation.SOURCE)
+    span_so = _build.build(span_attention.SOURCE)
+    _build.load(span_attention.SOURCE)
     build_s = time.time() - t0
     hgmma = _build.sass_count(so, "HGMMA")
-    flow_mma = {op: _build.sass_count(flow_so, op)
-                for op in ("FFMA", "HMMA", "HGMMA")}
+    flow_mma, span_mma = ({op: _build.sass_count(lib, op)
+                           for op in ("FFMA", "HMMA", "HGMMA")}
+                          for lib in (flow_so, span_so))
     emit({"phase": "build", "seconds": build_s, "library": so.name,
           "hgmma_instructions": hgmma, "ptxas": ptxas(so),
           "flow_library": flow_so.name, "flow_instructions": flow_mma,
-          "flow_ptxas": ptxas(flow_so)})
+          "flow_ptxas": ptxas(flow_so), "span_library": span_so.name,
+          "span_instructions": span_mma, "span_ptxas": ptxas(span_so)})
     check(hgmma > 0, "no HGMMA instruction: the product is not on the "
           "tensor cores")
-    check(flow_mma["FFMA"] > 0 and flow_mma["HMMA"] == 0
-          and flow_mma["HGMMA"] == 0, "the flow expectation is fp32 FFMA "
-          "on the CUDA cores", flow_mma)
+    for what, mma in (("flow expectation", flow_mma),
+                      ("span attention", span_mma)):
+        check(mma["FFMA"] > 0 and mma["HMMA"] == 0 and mma["HGMMA"] == 0,
+              f"the {what} is fp32 FFMA on the CUDA cores", mma)
     # The image decoders: the verb reads PNG with data/png.py (its C++
     # unfilter) and JPEG with csrc/jpeg.cpp; both need g++ only, and must
     # build.
@@ -4500,9 +4579,12 @@ def main():
                                           timed=False),
               "cell_shape": check_flow_kernel(FLOW_SHAPE, 5,
                                               FLOW_TOL["cell"], timed=True)}
+    span_k = {"ragged": check_span_kernel(SPAN_RAGGED, 6, timed=False),
+              "cell_shape": check_span_kernel(SPAN_SHAPE, 7, timed=True)}
     emit({"phase": "kernels", "seconds": time.time() - t0,
           "ragged": ragged, "main_shape": main_k, "verb_shape": verb_k,
-          "eth3d_1600px": eth3d, "ties": ties, "flow_expectation": flow_k})
+          "eth3d_1600px": eth3d, "ties": ties, "flow_expectation": flow_k,
+          "span_attention": span_k})
 
     t0 = time.time()
     params = load_matcher_params(WEIGHTS)
@@ -4613,6 +4695,24 @@ def main():
         "ms": flow["ms"], "plain_ms": flow["plain_ms"],
         "bound_ms": flow["bound_ms"], "bound_by": flow["bound_by"],
         "library_ms": flow["library_ms"]})
+    span = span_k["cell_shape"]
+    kernels.append({
+        "name": "span_attention", "route": "cuda",
+        "source": "detectorfreesfm_tpu_torch/csrc/span_attention.cu",
+        "replaces": None,  # JAX's FlowCrossAttention leaves it to XLA
+        "launches": alt["main"]["float32"]["span_launches"],
+        "launches_by_path": {
+            **{f"alt_main_{dt}": g["span_launches"]
+               for dt, g in alt["main"].items()},
+            "alt_reconstruct_a": alt["run_a"]["span_launches"],
+            **{f"alt_train_{a}": g["span_launches"]
+               for a, g in alt["train"].items()}},
+        "shape": span["shape"],
+        "max_abs_err": span["float32"]["max_abs_err"],
+        "ms": span["float32"]["ms"], "plain_ms": span["float32"]["plain_ms"],
+        "bound_ms": span["float32"]["bound_ms"], "bound_by": "bytes",
+        "ms_bf16": span["bfloat16"]["ms"],
+        "bound_ms_bf16": span["bfloat16"]["bound_ms"], "library_ms": None})
     print(smi)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

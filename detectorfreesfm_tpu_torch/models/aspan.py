@@ -27,12 +27,14 @@ Under a torch profiler (utils/profiler.py) the matcher records the spans
 `matcher/backbone` (the module's call), and per round
 `matcher/self_attention` (both self layers), `matcher/flow_head` (both
 flow heads) and `matcher/span_attention` (both window cross-attentions:
-window cells, gather, logits, softmax, values, merge and feed-forward),
-then `matcher/dual_softmax` (the dense confidence and the top-K), with
-their device time; and the counters `aspan/window_queries` (queries x
-rounds x directions) and `aspan/window_clamped` (those whose window the
-grid's edge clipped, so that it attends repeated cells), the latter
-summed on the card, `aspan/flow_queries` (the flow heads' queries) and
+window cells, projections, the window attention, merge and
+feed-forward), then `matcher/dual_softmax` (the dense confidence and the
+top-K), with their device time; and the counters `aspan/window_queries`
+(queries x rounds x directions), `aspan/window_clamped` (those whose
+window the grid's edge clipped, so that it attends repeated cells),
+summed on the card, and `aspan/span_fused` (those whose window attention
+the kernel of ops/span_attention.py computed, reading the window's rows
+in place), `aspan/flow_queries` (the flow heads' queries) and
 `aspan/flow_fused` (those whose expectation the kernel of
 ops/flow_expectation.py computed, without the (B, L, L) similarity).
 """
@@ -40,7 +42,6 @@ ops/flow_expectation.py computed, without the (B, L, L) similarity).
 from __future__ import annotations
 
 import dataclasses
-import math
 from typing import NamedTuple
 
 import torch
@@ -48,7 +49,9 @@ from torch import nn
 
 from ..device import set_backends
 from ..ops import flow_expectation as flow_ops
+from ..ops import span_attention as span_ops
 from ..ops.flow_expectation import flow_expectation, grid_xy
+from ..ops.span_attention import span_attention
 from ..utils.profiler import count, span
 from .backbone import ResNetFPN_8_2
 from .layers import Linear
@@ -129,26 +132,17 @@ class FlowCrossAttention(EncoderLayer):
 
     def forward(self, x, source, hw, flow):
         """x: (B, L, C) queries on an (h, w) grid; source: (B, L, C) on the
-        same grid; flow: (B, L, 2) predicted (dx_col, dy_row) offsets."""
-        b, l, d = x.shape
-        hn = self.nhead
-        dim = d // hn
+        same grid; flow: (B, L, 2) predicted (dx_col, dy_row) offsets. The
+        window attention is the kernel of ops/span_attention.py on the
+        card, its gather/einsum chain on the CPU."""
+        b, l, _ = x.shape
         cells = self.window_cells(flow, hw)
-        kk = cells.shape[-1]
-        # Projecting the source, then gathering its rows, is the dense
-        # layer on the gathered window row by row (25x fewer products).
-        idx = cells.reshape(b, l * kk, 1).expand(-1, -1, d)
-
-        def window(t):
-            return torch.gather(t, 1, idx).reshape(b, l, kk, hn, dim)
-
-        q = self.q_proj(x).reshape(b, l, hn, dim)
-        k = window(self.k_proj(source))
-        v = window(self.v_proj(source))
-        logits = torch.einsum("blhd,blkhd->blhk", q.float(), k.float())
-        attn = torch.softmax(logits / math.sqrt(dim), dim=-1).to(v.dtype)
-        msg = torch.einsum("blhk,blkhd->blhd", attn.float(), v.float())
-        return self.update(x, msg.to(v.dtype).reshape(b, l, d))
+        before = span_ops.launches["span_attention"]
+        msg = span_attention(self.q_proj(x), self.k_proj(source),
+                             self.v_proj(source), cells, self.nhead)
+        count("aspan/span_fused", b * l * (
+            span_ops.launches["span_attention"] - before))
+        return self.update(x, msg)
 
 
 class ASpanMatcher(PairMatcher):

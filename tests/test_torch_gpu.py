@@ -1135,10 +1135,10 @@ def test_layer_spans_agree_with_module_hooks():
 # --- ASpan's flow expectation (ops/flow_expectation.py) ---------------------
 
 
-def _flow_projections(size, n_pairs, heads=("flow0_0", "flow0_3")):
-    """{head: (q, k, w)}: the fp32 projections that the bundled ASpan
-    model's flow heads of rounds 0 and 3 (direction 0) take on n_pairs
-    pairs of a synthetic scene at size px."""
+def _aspan_inputs(size, n_pairs, take):
+    """{layer: take[layer](module, args)}: what the bundled ASpan model's
+    layers named in `take` are called with on n_pairs pairs of a
+    synthetic scene at size px, as each function of `take` reads it."""
     from detectorfreesfm_tpu_torch.data.synthetic import (SyntheticConfig,
                                                           generate_scene)
     from detectorfreesfm_tpu_torch.models import build_matcher
@@ -1154,17 +1154,27 @@ def _flow_projections(size, n_pairs, heads=("flow0_0", "flow0_3")):
              for j in range(i + 1, n_views)][:n_pairs]
     x = torch.from_numpy(imgs[..., None]).cuda()
     got, hooks = {}, []
-    for name in heads:
-        def hook(mod, args, _out, name=name):
-            xx, src, hw = args
-            got[name] = (mod.proj_q(xx).float().contiguous(),
-                         mod.proj_k(src).float().contiguous(), hw[1])
+    for name, fn in take.items():
+        def hook(mod, args, _out, name=name, fn=fn):
+            got[name] = fn(mod, args)
         hooks.append(getattr(model, name).register_forward_hook(hook))
     with torch.no_grad():
         model(x[[a for a, _ in pairs]], x[[b for _, b in pairs]])
     for h in hooks:
         h.remove()
     return got
+
+
+def _flow_projections(size, n_pairs, heads=("flow0_0", "flow0_3")):
+    """{head: (q, k, w)}: the fp32 projections that the bundled ASpan
+    model's flow heads of rounds 0 and 3 (direction 0) take on n_pairs
+    pairs of a synthetic scene at size px."""
+    def take(mod, args):
+        xx, src, hw = args
+        return (mod.proj_q(xx).float().contiguous(),
+                mod.proj_k(src).float().contiguous(), hw[1])
+
+    return _aspan_inputs(size, n_pairs, {name: take for name in heads})
 
 
 def _flow_errors(q, k, w):
@@ -1317,3 +1327,155 @@ def test_flow_head_counts_its_queries_through_the_kernel():
     assert counters["aspan/flow_queries"] == 2 * 221
     assert counters["aspan/flow_fused"] == 2 * 221
     assert fe.launches["flow_expectation"] == before + 1
+
+
+# --- ASpan's window attention (ops/span_attention.py) -----------------------
+
+
+def _span_errors(q, k, v, cells):
+    """The kernel's message against the plain chain's: the largest
+    |difference|, the largest |plain| value, the share of elements that
+    differ, and the device memory the kernel's call took above what was
+    allocated before it, beside its message's bytes."""
+    from detectorfreesfm_tpu_torch.ops import span_attention as sa
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    before = sa.launches["span_attention"]
+    got = sa.span_attention(q, k, v, cells, 8)
+    torch.cuda.synchronize()
+    extra = torch.cuda.max_memory_allocated() - base
+    assert sa.launches["span_attention"] == before + 1
+    assert got.dtype == v.dtype and got.shape == v.shape
+    plain = sa.span_attention_plain(q, k, v, cells, 8)
+    diff = (got.float() - plain.float()).abs()
+    return dict(kernel=diff.max().item(), scale=plain.abs().max().item(),
+                differ=(diff > 0).float().mean().item(), extra_bytes=extra,
+                out_bytes=got.numel() * got.element_size())
+
+
+def _edge_clamps(cells, h, w):
+    """How many windows repeat a column at the left and right edges and a
+    row at the top and bottom."""
+    c = cells.reshape(*cells.shape[:2], 5, 5)
+    return dict(left=(c[..., :, 0] == c[..., :, 1]).all(-1).sum().item(),
+                right=(c[..., :, 3] == c[..., :, 4]).all(-1).sum().item(),
+                top=(c[..., 0, :] == c[..., 1, :]).all(-1).sum().item(),
+                bottom=(c[..., 3, :] == c[..., 4, :]).all(-1).sum().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_span_kernel_on_a_ragged_grid(dtype):
+    """13 x 17 (L = 221, not a multiple of the block's 8 queries), two
+    pairs of random q, k, v (logits up to ~5), flows of up to 12 cells
+    that clamp windows at all four edges: fp32 within 1e-5 of the plain
+    chain; bf16 within one bf16 ulp of the largest value (sums in another
+    order flip a rounding of a probability or of the message)."""
+    _needs_cuda()
+    from detectorfreesfm_tpu_torch.models.aspan import FlowCrossAttention
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device="cuda").manual_seed(3)
+    dt = getattr(torch, dtype)
+    q, k, v = (torch.randn(2, 221, 256, device="cuda", generator=g).to(dt)
+               for _ in "qkv")
+    flow = (torch.rand(2, 221, 2, device="cuda", generator=g) - 0.5) * 24
+    cells = FlowCrossAttention(256, 8, 2).window_cells(flow, (13, 17))
+    assert min(_edge_clamps(cells, 13, 17).values()) > 0
+    e = _span_errors(q, k, v, cells)
+    tol = 1e-5 if dtype == "float32" else 2 ** -7 * e["scale"]
+    assert e["kernel"] <= tol, e
+
+
+@pytest.mark.cuda
+def test_span_kernel_on_the_cells_projections():
+    """832 px, B = 8 pairs (L = 10 816), the bundled weights' fp32
+    projections and windows of the cross layers of rounds 0 and 3
+    (direction 0): within 1e-5 of the largest value of the plain chain
+    (read 9.4e-6 and 1.26e-5 against largest values of 13.3 and 14.2:
+    sums in another order), and no gathered tensor: the call allocates
+    its message and nothing more (the plain chain gathers 2.2 GB for k
+    and for v)."""
+    _needs_cuda()
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    def take(mod, args):
+        x, src, hw, flow = args
+        return (mod.q_proj(x), mod.k_proj(src), mod.v_proj(src),
+                mod.window_cells(flow, hw))
+
+    got = _aspan_inputs(832, 8, {n: take for n in ("cross0_0", "cross0_3")})
+    for name, (q, k, v, cells) in got.items():
+        assert q.shape == (8, 10816, 256) and q.dtype == torch.float32
+        e = _span_errors(q, k, v, cells)
+        assert e["kernel"] <= 1e-5 * e["scale"], (name, e)
+        assert e["extra_bytes"] <= e["out_bytes"] + 2 ** 20, (name, e)
+
+
+@pytest.mark.cuda
+def test_span_function_gradients_equal_autograd_through_plain():
+    """The autograd Function (kernel forward, recomputing backward) on a
+    32 x 32 grid, two pairs: dq, dk and dv within 1e-5 of the largest
+    gradient of autograd through the plain chain (the gathers' backward
+    adds with atomics, in no fixed order)."""
+    _needs_cuda()
+    from detectorfreesfm_tpu_torch.models.aspan import FlowCrossAttention
+    from detectorfreesfm_tpu_torch.ops import span_attention as sa
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device="cuda").manual_seed(4)
+    q, k, v = (torch.randn(2, 1024, 256, device="cuda", generator=g)
+               for _ in "qkv")
+    flow = (torch.rand(2, 1024, 2, device="cuda", generator=g) - 0.5) * 8
+    cells = FlowCrossAttention(256, 8, 2).window_cells(flow, (32, 32))
+    weight = torch.randn(2, 1024, 256, device="cuda", generator=g)
+    grads = []
+    for fn in (sa.span_attention, sa.span_attention_plain):
+        qa, ka, va = (t.clone().requires_grad_() for t in (q, k, v))
+        (fn(qa, ka, va, cells, 8) * weight).sum().backward()
+        grads.append((qa.grad, ka.grad, va.grad))
+    for got, want in zip(*grads):
+        assert (got - want).abs().max() <= 1e-5 * want.abs().max()
+
+
+@pytest.mark.cuda
+def test_flow_cross_attention_counts_its_queries_through_the_kernel():
+    """A FlowCrossAttention on the card under a profiler: every window
+    query counted as computed by the kernel (the share span_fused_pct
+    reads), one launch."""
+    _needs_cuda()
+    from torch.profiler import ProfilerActivity, profile
+
+    from detectorfreesfm_tpu_torch.models.aspan import FlowCrossAttention
+    from detectorfreesfm_tpu_torch.ops import span_attention as sa
+    from detectorfreesfm_tpu_torch.utils import profiler
+
+    torch.manual_seed(0)
+    layer = FlowCrossAttention(256, 8, 2).cuda().eval()
+    x, src = (torch.randn(2, 13 * 17, 256, device="cuda") for _ in "xs")
+    flow = torch.randn(2, 13 * 17, 2, device="cuda") * 3
+    before = sa.launches["span_attention"]
+    profiler.reset()
+    with profile(activities=[ProfilerActivity.CPU]), torch.no_grad():
+        layer(x, src, (13, 17), flow)
+    counters = profiler.snapshot()["counters"]
+    assert counters["aspan/window_queries"] == 2 * 221
+    assert counters["aspan/span_fused"] == 2 * 221
+    assert sa.launches["span_attention"] == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["width", "window"])
+def test_span_kernel_refuses_other_sizes(case):
+    """The plain chain takes any head layout and window; on the card the
+    kernel's 256 channels, 8 heads and 25 cells, or a ValueError."""
+    _needs_cuda()
+    from detectorfreesfm_tpu_torch.ops import span_attention as sa
+
+    d, kk = (128, 25) if case == "width" else (256, 9)
+    q, k, v = (torch.randn(1, 35, d, device="cuda") for _ in "qkv")
+    cells = torch.randint(0, 35, (1, 35, kk), device="cuda")
+    with pytest.raises(ValueError, match="the kernel is built for"):
+        sa.span_attention(q, k, v, cells, 8)

@@ -281,8 +281,9 @@ def test_aspan_spans_and_counters_only_in_a_session():
     spanned once, and the counters hold 2 directions x 4 rounds x 64
     queries, of which those whose 5 x 5 window crosses the grid's edge
     are clamped (most, on so small a grid; cells 2 from every edge
-    cannot be unless their flow moves them), and as many flow-head
-    queries, none of them through the card's kernel. With no profiler
+    cannot be unless their flow moves them), none of them through the
+    card's window kernel, and as many flow-head queries, none of them
+    through the card's flow kernel. With no profiler
     the same forward records nothing."""
     from detectorfreesfm_tpu_torch.models import build_matcher
 
@@ -303,8 +304,10 @@ def test_aspan_spans_and_counters_only_in_a_session():
     assert all(s["device_ms"] is None for s in snap["spans"].values())
     counters = snap["counters"]
     assert set(counters) == {"aspan/window_queries", "aspan/window_clamped",
-                             "aspan/flow_queries", "aspan/flow_fused"}
+                             "aspan/span_fused", "aspan/flow_queries",
+                             "aspan/flow_fused"}
     assert counters["aspan/window_queries"] == 2 * 4 * 64
+    assert counters["aspan/span_fused"] == 0
     assert counters["aspan/flow_queries"] == 2 * 4 * 64
     assert counters["aspan/flow_fused"] == 0
     assert 0 < counters["aspan/window_clamped"] < 2 * 4 * 64
