@@ -57,12 +57,12 @@ default, and refinement stays float32 (models/loftr.py).
 
 `--matcher-arch aspan|matchformer --matcher-ckpt CKPT` (reconstruct,
 eval-dataset) matches with another family of models.build_matcher, dense
-whatever --fused says, as in JAX (ASpan computes each view once per
-engine call, as the LoFTR family does; MatchFormer runs pair by pair:
-match/engine.py); these families have no bundled default
-(weights/demo_aspan_bf16.msgpack is an ASpan checkpoint), so the
-checkpoint must be named. `train-matcher --arch aspan|matchformer` trains
-them with the coarse focal loss, from a fresh init or --init-ckpt.
+whatever --fused says, as in JAX (every family computes its views once
+per engine call, match/engine.py; MatchFormer's encoder attends across
+the two images, so its views are its frames); these families have no
+bundled default (weights/demo_aspan_bf16.msgpack is an ASpan checkpoint),
+so the checkpoint must be named. `train-matcher --arch aspan|matchformer`
+trains them with the coarse focal loss, from a fresh init or --init-ckpt.
 """
 
 from __future__ import annotations

@@ -26,6 +26,15 @@ and softmax in fp32 (JAX's `preferred_element_type=float32`), the softmax
 rounded to bf16 before it weights the values; LayerNorm in fp32 rounded
 to bf16. The two images run as one batch of 2B (the same weights, row by
 row the same products).
+
+Under a torch profiler (utils/profiler.py) the matcher records the spans
+`matcher/encoder` (the three stages, patch embeds to the last block),
+`matcher/sr_attention` (each SRAttention call's attention core: the K/V
+pooling, the q/k/v projections, the chunked logits, softmax and values,
+and the output projection; not its post-norms and MLP) and
+`matcher/dual_softmax` (the dense confidence and the top-K), with their
+device time; and the counter `matchformer/logit_bytes`, the bytes of
+fp32 logits the query chunks write (2B x heads x N x M x 4 a call).
 """
 
 from __future__ import annotations
@@ -40,6 +49,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..device import set_backends
+from ..utils.profiler import count, span
 from .layers import Conv2d, LayerNorm, Linear
 from .loftr import MatcherConfig, PairMatcher, dense_match, grid_valid
 from .position_encoding import add_position_encoding
@@ -115,6 +125,15 @@ class SRAttention(nn.Module):
     def forward(self, x, source_map):
         """x: (B, N, C) queries; source_map: (B, H, W, C) keys/values (x's
         own map for self-attention, the other image's for cross)."""
+        with span("matcher/sr_attention", x.device):
+            msg = self.attention(x, source_map)
+        y = self.ln(x + msg)
+        h = self.mlp2(gelu(self.mlp1(y)))
+        return self.ln2(y + h)
+
+    def attention(self, x, source_map):
+        """The attention core: pooled keys and values, the query chunks'
+        softmax attention and the output projection, (B, N, C)."""
         b, n, c = x.shape
         hn = self.nhead
         dh = self.dim // hn
@@ -126,6 +145,7 @@ class SRAttention(nn.Module):
         k = self.k(kv).reshape(b, -1, hn, dh).permute(0, 2, 3, 1)  # B H D M
         v = self.v(kv).reshape(b, -1, hn, dh).transpose(1, 2)      # B H M D
         dt = v.dtype
+        count("matchformer/logit_bytes", b * hn * n * kv.shape[1] * 4)
 
         def attend(qc, k, v):
             logits = torch.matmul(qc.float(), k.float()) * self.scale
@@ -139,9 +159,7 @@ class SRAttention(nn.Module):
             else:
                 outs.append(attend(qc, k, v))
         out = torch.cat(outs, dim=2).transpose(1, 2).reshape(b, n, self.dim)
-        y = self.ln(x + self.proj(out))
-        h = self.mlp2(gelu(self.mlp1(y)))
-        return self.ln2(y + h)
+        return self.proj(out)
 
 
 class MatchFormerMatcher(PairMatcher):
@@ -179,24 +197,28 @@ class MatchFormerMatcher(PairMatcher):
         image0, image1 = view0.frames, view1.frames
         cfg = self.cfg
         b = image0.shape[0]
+        dev = image0.device
         x = torch.cat([image0, image1], dim=0).to(cfg.dtype).permute(
             0, 3, 1, 2)                                   # (2B, 1, H, W)
-        for si, (dims, blocks) in enumerate(zip(cfg.stage_dims,
-                                                cfg.stage_blocks)):
-            x = getattr(self, f"embed{si}")(x)
-            hs, ws = x.shape[2:]
-            # The position encoding feeds each stage's attention, and not
-            # the matching features after the last one.
-            f = add_position_encoding(x.permute(0, 2, 3, 1)).reshape(
-                2 * b, hs * ws, dims)
-            for bi in range(blocks):
-                f = getattr(self, f"s{si}_b{bi}_self")(
-                    f, f.reshape(2 * b, hs, ws, dims))
-                other = torch.cat([f[b:], f[:b]], dim=0)
-                f = getattr(self, f"s{si}_b{bi}_cross")(
-                    f, other.reshape(2 * b, hs, ws, dims))
-            x = f.reshape(2 * b, hs, ws, dims).permute(0, 3, 1, 2)
+        with span("matcher/encoder", dev):
+            for si, (dims, blocks) in enumerate(zip(cfg.stage_dims,
+                                                    cfg.stage_blocks)):
+                x = getattr(self, f"embed{si}")(x)
+                hs, ws = x.shape[2:]
+                # The position encoding feeds each stage's attention, and
+                # not the matching features after the last one.
+                f = add_position_encoding(x.permute(0, 2, 3, 1)).reshape(
+                    2 * b, hs * ws, dims)
+                for bi in range(blocks):
+                    f = getattr(self, f"s{si}_b{bi}_self")(
+                        f, f.reshape(2 * b, hs, ws, dims))
+                    other = torch.cat([f[b:], f[:b]], dim=0)
+                    f = getattr(self, f"s{si}_b{bi}_cross")(
+                        f, other.reshape(2 * b, hs, ws, dims))
+                x = f.reshape(2 * b, hs, ws, dims).permute(0, 3, 1, 2)
         h8, w8 = x.shape[2:]
-        mask0 = grid_valid(valid_hw0, b, h8, w8, cfg.border, image0.device)
-        mask1 = grid_valid(valid_hw1, b, h8, w8, cfg.border, image0.device)
-        return dense_match(f[:b], f[b:], mask0, mask1, cfg, w8, return_conf)
+        mask0 = grid_valid(valid_hw0, b, h8, w8, cfg.border, dev)
+        mask1 = grid_valid(valid_hw1, b, h8, w8, cfg.border, dev)
+        with span("matcher/dual_softmax", dev):
+            return dense_match(f[:b], f[b:], mask0, mask1, cfg, w8,
+                               return_conf)

@@ -13,7 +13,9 @@ by its match set, IoU >= 0.99 with the valid count within 1%, and its
 dense confidence within 1e-4 of its largest value; one training step:
 loss 1e-5 and gradient norm 1e-4 relative. bf16: the criteria of
 tests/test_torch_bf16.py (bf16_errors), and match sets at the IoU floor
-stated in the test. Checkpoints: bit-equal after a round trip.
+stated in the test. Checkpoints: bit-equal after a round trip. With a
+profiler running (the spans and the counter recording), outputs
+bit-equal to those without one.
 """
 
 import os
@@ -167,6 +169,29 @@ def test_matchformer_matcher_matches_jax(fresh_vars):
                         144, self_pair=True, match_threshold=0.0)
     check_matcher_runs(runs, iou_floor_bf16=0.99, n_min=40, b=1,
                        gap=2.0 ** 0.5)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_spans_leave_the_outputs_bit_equal(dtype):
+    """A 96 px batch of two pairs with a torch profiler running (so that
+    every span and the counter record) and without one: every output and
+    the dense confidence bit-equal."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.manual_seed(3)
+    model = build_matcher("matchformer", compute_dtype=dtype,
+                          match_threshold=0.0).eval()
+    rng = np.random.default_rng(4)
+    x0, x1 = (torch.from_numpy(rng.uniform(size=(2, 96, 96, 1)).astype(
+        np.float32)) for _ in range(2))
+    with torch.no_grad():
+        plain = model(x0, x1, return_conf=True)
+        with profile(activities=[ProfilerActivity.CPU]):
+            traced = model(x0, x1, return_conf=True)
+    out, conf = plain
+    assert int(out.valid.sum()) > 0
+    for a, b in zip(list(out) + [conf], list(traced[0]) + [traced[1]]):
+        assert a.dtype == b.dtype and torch.equal(a, b)
 
 
 @pytest.fixture(scope="module")

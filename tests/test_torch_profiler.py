@@ -313,6 +313,35 @@ def test_aspan_spans_and_counters_only_in_a_session():
     assert 0 < counters["aspan/window_clamped"] < 2 * 4 * 64
 
 
+def test_matchformer_spans_and_counter_only_in_a_session():
+    """A 64 px MatchFormer pair (random weights): under a profiler the
+    encoder and the dual-softmax are spanned once and the attention core
+    once a layer, 2 x (1 + 2 + 2) = 10, and the counter holds the fp32
+    logits of every layer, 2B x 8 heads x N x M x 4 bytes: stage grids
+    of 32, 16 and 8 cells a side, each pooled to 4 x 4 keys. With no
+    profiler the same forward records nothing."""
+    from detectorfreesfm_tpu_torch.models import build_matcher
+
+    torch.manual_seed(0)
+    model = build_matcher("matchformer").eval()
+    x0, x1 = (torch.from_numpy(im)[None, ..., None]
+              for im in _scene()[1][:2])
+    TPR.reset()
+    with torch.no_grad():
+        model(x0, x1)
+    assert TPR.snapshot() == {"spans": {}, "counters": {}}
+    with _session(), torch.no_grad():
+        model(x0, x1)
+    snap = TPR.snapshot()
+    assert {n: s["calls"] for n, s in snap["spans"].items()} == {
+        "matcher/encoder": 1, "matcher/sr_attention": 10,
+        "matcher/dual_softmax": 1}
+    assert all(s["device_ms"] is None for s in snap["spans"].values())
+    layers = {32 * 32: 2, 16 * 16: 4, 8 * 8: 4}
+    assert snap["counters"] == {"matchformer/logit_bytes": sum(
+        2 * 8 * n * 16 * 4 * k for n, k in layers.items())}
+
+
 def test_a_session_holds_only_its_own_spans():
     """Engine calls in two profiler sessions, and between them: the second
     session's snapshot holds its own call alone."""
