@@ -9,8 +9,9 @@ standard library, numpy, torch and the port. Phases, one JSON line each:
   device   card name and power limit
   build    nvcc of the port's CUDA sources into build/torch_kernels/, and
            the count of tensor-core (HGMMA) instructions in the library;
-           the flow expectation's and the span attention's libraries
-           hold FFMAs and no HMMA or HGMMA (fp32 on the CUDA cores)
+           the flow expectation's, the span attention's and the SR
+           attention's libraries hold FFMAs and no HMMA or HGMMA (fp32 on
+           the CUDA cores)
   kernels  each kernel against its plain torch version at a ragged shape,
            the main path's (B=2, L=S=10816, C=256) and the 1600 px one
            (B=1, L=S=40000), timed at the last two; planted ties across
@@ -22,7 +23,11 @@ standard library, numpy, torch and the port. Phases, one JSON line each:
            attention (ASpan's 5 x 5 window attention) in fp32 and bf16 at
            a ragged 13 x 17 grid and at the ASpan cell's shape (B = 8,
            104 x 104), timed there beside its memory bound and its plain
-           gather/einsum chain
+           gather/einsum chain; the SR attention (MatchFormer's attention
+           core) at a ragged 26 x 34 grid and at each stage of the
+           MatchFormer cell's step (16 frames at 832 px, 2 704 keys),
+           timed there beside its fp32 FFMA bound, its plain chunked
+           chain and scaled_dot_product_attention in fp32
   weights  the bundled r5 matcher through the port's converter
   main     6 exhaustive pairs of a 832 px synthetic scene, coarse_fine,
            through PairMatchingEngine with the fused kernels, held to the
@@ -129,7 +134,9 @@ standard library, numpy, torch and the port. Phases, one JSON line each:
            either pass on every run; the flow expectation and span
            attention kernels launched by every ASpan flow head and cross
            layer (8 each a batch on main's pairs; on run A; in ASpan's
-           training steps) and never by MatchFormer; reported:
+           training steps) and never by MatchFormer; the SR attention
+           kernel launched by every SR layer of the served MatchFormer
+           and never in training steps; reported:
            warm pairs/s, device ms of a batch, step seconds and peak
            memory; full report in build/smoke_alt/alt.json
   mesh     parallel/mesh.py on the card, reusing main's engine results,
@@ -205,6 +212,16 @@ FLOW_TOL = {"ragged": 5e-5, "cell": 1e-3}
 # cell's batch of 8 pairs at 832 px, and a ragged grid.
 SPAN_SHAPE = dict(b=8, h=104, w=104)
 SPAN_RAGGED = dict(b=2, h=13, w=17)
+# MatchFormer's SR attention (ops/sr_attention.py): each stage of the
+# MatchFormer cell's step of 8 pairs at 832 px (16 frames, both sides),
+# (queries, channels), all attending to the 52 x 52 pooled keys; the SR
+# layers a stage has (blocks x self and cross); and a ragged grid.
+SR_STAGES = {"stride2": (173056, 64), "stride4": (43264, 128),
+             "stride8": (10816, 256)}
+SR_LAYERS = {"stride2": 2, "stride4": 4, "stride8": 4}
+SR_FRAMES, SR_KEYS = 16, 2704
+SR_RAGGED = {"stride2": (884, 64, 12), "stride4": (884, 128, 48),
+             "stride8": (884, 256, 221)}
 # Device kernels of csrc/dual_softmax.cu, as the profiler names them.
 DSM_KERNELS = ("pass1_kernel", "pass2_kernel", "combine1_kernel",
                "combine2_kernel")
@@ -427,6 +444,77 @@ def check_span_kernel(shape, seed, timed):
                 share_of_bound=bound_ms / ms,
                 plain_ms=cuda_ms(lambda: S.span_attention_plain(
                     qd, kd, vd, cells, 8), 3))
+    return out
+
+
+def sr_inputs(frames, n, m, c, seed):
+    """Seeded q (logits of standard deviation ~2), k and v, and the
+    layer's scale, JAX's 1 / sqrt(head width) in float32."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q = 2.0 * torch.randn(frames, n, c, device="cuda", generator=g)
+    k, v = (torch.randn(frames, m, c, device="cuda", generator=g)
+            for _ in "kv")
+    return q, k, v, float(np.float32(1.0) / np.sqrt(np.float32(c // 8)))
+
+
+def check_sr_kernel(seed):
+    """The SR attention kernel against its plain chain, 8 heads, within
+    1e-5 of the chain's largest value: on a 26 x 34 query grid (2 frames)
+    with keys pooled by each stage's ratio, and at each stage's shape of
+    the cell's step; there, its time beside its bound (4 F N M C fp32
+    flops at PEAK_FP32_FLOPS: no tensor cores), the plain chain's, and
+    scaled_dot_product_attention's on the same heads in fp32 (its
+    memory-efficient kernel, the library's yardstick, which the port
+    never calls), and the ms a pair of the stage's layers."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from detectorfreesfm_tpu_torch.ops import sr_attention as S
+
+    out = {"ragged": {}}
+    with torch.no_grad():
+        for stage, (n, c, m) in SR_RAGGED.items():
+            q, k, v, scale = sr_inputs(2, n, m, c, seed)
+            plain = S.sr_attention_plain(q, k, v, 8, scale)
+            err = (S.sr_attention(q, k, v, 8, scale) -
+                   plain).abs().max().item()
+            tol = 1e-5 * plain.abs().max().item()
+            check(err <= tol, "sr_attention vs plain, ragged", stage, err,
+                  tol)
+            out["ragged"][stage] = dict(n=n, m=m, c=c, max_abs_err=err,
+                                        tol=tol)
+        for stage, (n, c) in SR_STAGES.items():
+            q, k, v, scale = sr_inputs(SR_FRAMES, n, SR_KEYS, c, seed)
+            plain = S.sr_attention_plain(q, k, v, 8, scale)
+            err = (S.sr_attention(q, k, v, 8, scale) -
+                   plain).abs().max().item()
+            tol = 1e-5 * plain.abs().max().item()
+            del plain
+            check(err <= tol, "sr_attention vs plain", stage, err, tol)
+            flops = 4.0 * SR_FRAMES * n * SR_KEYS * c
+            bound_ms = flops / PEAK_FP32_FLOPS * 1e3
+            ms = cuda_ms(lambda: S.sr_attention(q, k, v, 8, scale), 5)
+            heads = [t.reshape(SR_FRAMES, -1, 8, c // 8).transpose(1, 2)
+                     for t in (q, k, v)]
+            try:
+                with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+                    library_ms = cuda_ms(
+                        lambda: torch.nn.functional.
+                        scaled_dot_product_attention(*heads, scale=scale), 2)
+            except RuntimeError as e:  # no library kernel for the shape
+                library_ms = f"not measured: {str(e)[:160]}"
+            out[stage] = dict(
+                frames=SR_FRAMES, n=n, m=SR_KEYS, c=c, max_abs_err=err,
+                tol=tol, ms=ms, flops=flops, bound_ms=bound_ms,
+                bound_by="operations (fp32 FFMA)",
+                share_of_bound=bound_ms / ms,
+                plain_ms=cuda_ms(lambda: S.sr_attention_plain(
+                    q, k, v, 8, scale), 2),
+                library_ms=library_ms,
+                ms_per_pair=ms * SR_LAYERS[stage] * 2 / SR_FRAMES)
+            del q, k, v, heads
+    out["ms_per_pair"] = sum(out[s]["ms_per_pair"] for s in SR_STAGES)
+    out["bound_ms_per_pair"] = sum(
+        out[s]["bound_ms"] * SR_LAYERS[s] * 2 / SR_FRAMES for s in SR_STAGES)
     return out
 
 
@@ -3741,6 +3829,13 @@ def span_launches():
     return span_attention.launches["span_attention"]
 
 
+def sr_launches():
+    """Launches of the SR attention kernel so far in the process."""
+    from detectorfreesfm_tpu_torch.ops import sr_attention
+
+    return sr_attention.launches["sr_attention"]
+
+
 def main_scene():
     """Main's scene: names, LoadedImages, exhaustive pairs and the true
     (K, q, t)."""
@@ -3927,13 +4022,14 @@ def alt_phase():
         reset_launches()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        flow0, span0 = flow_launches(), span_launches()
+        flow0, span0, sr0 = flow_launches(), span_launches(), sr_launches()
         t1 = time.time()
         rc = cli.main(alt_train_argv(data, os.path.join(work, "train"),
                                      arch) + ["--log-json", log])
         wall = time.time() - t1
         flow = flow_launches() - flow0
         span = span_launches() - span0
+        sr = sr_launches() - sr0
         check(rc == 0, "alt train", arch, "exit code", rc)
         with open(log) as f:
             steps = [json.loads(ln) for ln in f]
@@ -3949,7 +4045,7 @@ def alt_phase():
             / 2 ** 30, losses=[s["loss"] for s in steps],
             grad_norms=[s["grad_norm"] for s in steps],
             launches=read_launches(), flow_launches=flow,
-            span_launches=span, checkpoint=ckpt,
+            span_launches=span, sr_launches=sr, checkpoint=ckpt,
             checkpoint_leaves=len(back),
             jax=JAX_TRAIN[f"train_matcher_{arch}"])
     laps["train_s"] = time.time() - t0
@@ -3958,6 +4054,7 @@ def alt_phase():
     t0 = time.time()
     out_d = os.path.join(work, "out_d")
     reset_launches()
+    sr0 = sr_launches()
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
         rc = cli.main(["reconstruct", "--scene", scene, "--output", out_d,
@@ -3966,16 +4063,24 @@ def alt_phase():
                        "--refine-iters", "0"])
     wall = time.time() - t0
     launches = read_launches()
+    served_sr = sr_launches() - sr0
     (_key, engine), = pipeline._ENGINE_CACHE.items()
     served_by = type(engine.model).__name__
+    # Every SR layer of every forward launches the kernel: self and cross
+    # per block, forward_ms runs 1 + 3 forwards.
+    sr_layers = 2 * sum(engine.model.cfg.stage_blocks)
+    sr0 = sr_launches()
     mf_ms = forward_ms(engine.model, main[1], main[2])
+    forward_sr = sr_launches() - sr0
     pipeline._ENGINE_CACHE.clear()
     del engine
     lines = buf.getvalue().strip().splitlines()
     report["serve_matchformer"] = dict(
         rc=rc, result=json.loads(lines[-1]) if lines else None,
         matches_stored=pipeline.matches_stored(out_d), model=served_by,
-        launches=launches, wall_s=wall, batch2_forward_ms_832px=mf_ms)
+        launches=launches, sr_launches=served_sr, sr_layers=sr_layers,
+        forward_sr_launches=forward_sr, wall_s=wall,
+        batch2_forward_ms_832px=mf_ms)
     laps["serve_s"] = time.time() - t0
     report.update(laps, alt_s=time.time() - t_phase)
     with open(os.path.join(work, "alt.json"), "w") as f:
@@ -3995,11 +4100,19 @@ def alt_phase():
               and report["train"]["matchformer"][key] == 0,
               "alt train: kernel launches", key,
               {a: g[key] for a, g in report["train"].items()})
+    # MatchFormer trains through the dense chain (autograd), ASpan has no
+    # SR layer.
+    check(all(g["sr_launches"] == 0 for g in report["train"].values()),
+          "alt train: SR attention kernel launches",
+          {a: g["sr_launches"] for a, g in report["train"].items()})
     _check_alt_train_gates(report["train"], JAX_TRAIN)
     serve = report["serve_matchformer"]
     check(serve["result"] is not None and serve["matches_stored"]
           and serve["model"] == "MatchFormerMatcher"
-          and serve["launches"] == NO_LAUNCHES,
+          and serve["launches"] == NO_LAUNCHES
+          and serve["sr_launches"] > 0
+          and serve["sr_launches"] % serve["sr_layers"] == 0
+          and serve["forward_sr_launches"] == 4 * serve["sr_layers"],
           "alt: the trained MatchFormer through the verb", serve)
     return report
 
@@ -4507,7 +4620,8 @@ def main():
         return dp_reference(sys.argv[sys.argv.index("--dp-reference") + 1])
     from detectorfreesfm_tpu_torch.device import set_fp32_backends
     from detectorfreesfm_tpu_torch.ops import (_build, flow_expectation,
-                                               fused_dsm, span_attention)
+                                               fused_dsm, span_attention,
+                                               sr_attention)
     from detectorfreesfm_tpu_torch.utils.checkpoint import load_matcher_params
 
     set_fp32_backends()  # plain versions' matmuls in full fp32, as the kernels
@@ -4536,20 +4650,25 @@ def main():
     _build.load(flow_expectation.SOURCE)
     span_so = _build.build(span_attention.SOURCE)
     _build.load(span_attention.SOURCE)
+    sr_so = _build.build(sr_attention.SOURCE)
+    _build.load(sr_attention.SOURCE)
     build_s = time.time() - t0
     hgmma = _build.sass_count(so, "HGMMA")
-    flow_mma, span_mma = ({op: _build.sass_count(lib, op)
-                           for op in ("FFMA", "HMMA", "HGMMA")}
-                          for lib in (flow_so, span_so))
+    flow_mma, span_mma, sr_mma = ({op: _build.sass_count(lib, op)
+                                   for op in ("FFMA", "HMMA", "HGMMA")}
+                                  for lib in (flow_so, span_so, sr_so))
     emit({"phase": "build", "seconds": build_s, "library": so.name,
           "hgmma_instructions": hgmma, "ptxas": ptxas(so),
           "flow_library": flow_so.name, "flow_instructions": flow_mma,
           "flow_ptxas": ptxas(flow_so), "span_library": span_so.name,
-          "span_instructions": span_mma, "span_ptxas": ptxas(span_so)})
+          "span_instructions": span_mma, "span_ptxas": ptxas(span_so),
+          "sr_library": sr_so.name, "sr_instructions": sr_mma,
+          "sr_ptxas": ptxas(sr_so)})
     check(hgmma > 0, "no HGMMA instruction: the product is not on the "
           "tensor cores")
     for what, mma in (("flow expectation", flow_mma),
-                      ("span attention", span_mma)):
+                      ("span attention", span_mma),
+                      ("SR attention", sr_mma)):
         check(mma["FFMA"] > 0 and mma["HMMA"] == 0 and mma["HGMMA"] == 0,
               f"the {what} is fp32 FFMA on the CUDA cores", mma)
     # The image decoders: the verb reads PNG with data/png.py (its C++
@@ -4581,10 +4700,11 @@ def main():
                                               FLOW_TOL["cell"], timed=True)}
     span_k = {"ragged": check_span_kernel(SPAN_RAGGED, 6, timed=False),
               "cell_shape": check_span_kernel(SPAN_SHAPE, 7, timed=True)}
+    sr_k = check_sr_kernel(8)
     emit({"phase": "kernels", "seconds": time.time() - t0,
           "ragged": ragged, "main_shape": main_k, "verb_shape": verb_k,
           "eth3d_1600px": eth3d, "ties": ties, "flow_expectation": flow_k,
-          "span_attention": span_k})
+          "span_attention": span_k, "sr_attention": sr_k})
 
     t0 = time.time()
     params = load_matcher_params(WEIGHTS)
@@ -4713,6 +4833,22 @@ def main():
         "bound_ms": span["float32"]["bound_ms"], "bound_by": "bytes",
         "ms_bf16": span["bfloat16"]["ms"],
         "bound_ms_bf16": span["bfloat16"]["bound_ms"], "library_ms": None})
+    for stage in SR_STAGES:
+        k = sr_k[stage]
+        kernels.append({
+            "name": f"sr_attention.{stage}", "route": "cuda",
+            "source": "detectorfreesfm_tpu_torch/csrc/sr_attention.cu",
+            "replaces": None,  # JAX's SRAttention leaves it to XLA
+            "launches": alt["serve_matchformer"]["sr_launches"],
+            "launches_by_path": {
+                "alt_serve_matchformer": alt["serve_matchformer"][
+                    "sr_launches"],
+                **{f"alt_train_{a}": g["sr_launches"]
+                   for a, g in alt["train"].items()}},
+            "shape": dict(frames=k["frames"], n=k["n"], m=k["m"], c=k["c"]),
+            "max_abs_err": k["max_abs_err"], "ms": k["ms"],
+            "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
+            "bound_by": k["bound_by"], "library_ms": k["library_ms"]})
     print(smi)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -14,11 +14,15 @@ returns the frames as given); `match_views` is the whole network on the
 two sides' frames. Through the engine each step's frames come from its
 view store instead of being stacked per pair, with the same results.
 
-The queries are chunked by 4096, as in JAX, so a stage-0 logits tensor is
-(B, heads, 4096, M), not (B, heads, N, M) (15 GB per attention at 832 px).
-Under autograd each chunk is recomputed in the backward pass
-(torch.utils.checkpoint, JAX's jax.checkpoint) instead of keeping its
-softmax.
+The attention core is ops/sr_attention.py's. In fp32 without autograd
+(serving, the engine) it is `sr_attention`: on the card the kernel of
+csrc/sr_attention.cu, one pass over the pooled keys with a running softmax
+that writes no logits; on the CPU the plain chain. Under autograd
+(training) and in bf16 it is `sr_attention_plain`, the chain: queries
+chunked by 4096, as in JAX, so a stage-0 logits tensor is (B, heads, 4096,
+M), not (B, heads, N, M) (15 GB per attention at 832 px), each chunk
+recomputed in the backward pass (torch.utils.checkpoint, JAX's
+jax.checkpoint) instead of keeping its softmax.
 
 `compute_dtype="bfloat16"` is JAX's bf16 path (models/layers.py): embeds,
 projections, MLPs and the residual stream in bf16; the attention logits
@@ -30,11 +34,14 @@ row the same products).
 Under a torch profiler (utils/profiler.py) the matcher records the spans
 `matcher/encoder` (the three stages, patch embeds to the last block),
 `matcher/sr_attention` (each SRAttention call's attention core: the K/V
-pooling, the q/k/v projections, the chunked logits, softmax and values,
-and the output projection; not its post-norms and MLP) and
+pooling, the q/k/v projections, the attention and the output
+projection; not its post-norms and MLP) and
 `matcher/dual_softmax` (the dense confidence and the top-K), with their
-device time; and the counter `matchformer/logit_bytes`, the bytes of
-fp32 logits the query chunks write (2B x heads x N x M x 4 a call).
+device time; and the counters `matchformer/sr_queries` (2B x N a call),
+`matchformer/sr_fused` (those whose attention the kernel computed) and
+`matchformer/logit_bytes`, the bytes of fp32 logits the chain's query
+chunks write (2B x heads x N x M x 4 a call through the chain, 0 a call
+through the kernel).
 """
 
 from __future__ import annotations
@@ -46,16 +53,14 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
 
 from ..device import set_backends
+from ..ops import sr_attention as sr_ops
 from ..utils.profiler import count, span
 from .layers import Conv2d, LayerNorm, Linear
 from .loftr import MatcherConfig, PairMatcher, dense_match, grid_valid
 from .position_encoding import add_position_encoding
 from .transformer import LN_EPS
-
-QUERY_CHUNK = 4096
 
 
 @dataclasses.dataclass(frozen=True)
@@ -132,33 +137,27 @@ class SRAttention(nn.Module):
         return self.ln2(y + h)
 
     def attention(self, x, source_map):
-        """The attention core: pooled keys and values, the query chunks'
-        softmax attention and the output projection, (B, N, C)."""
+        """The attention core: pooled keys and values, the projections, the
+        softmax attention (the kernel of ops/sr_attention.py in fp32
+        without autograd, else the chunked chain) and the output
+        projection, (B, N, C)."""
         b, n, c = x.shape
-        hn = self.nhead
-        dh = self.dim // hn
         kv = source_map
         if self.sr_ratio > 1:
             kv = avg_pool(kv, self.sr_ratio)
         kv = kv.reshape(b, -1, c)
-        q = self.q(x).reshape(b, n, hn, dh).transpose(1, 2)      # B H N D
-        k = self.k(kv).reshape(b, -1, hn, dh).permute(0, 2, 3, 1)  # B H D M
-        v = self.v(kv).reshape(b, -1, hn, dh).transpose(1, 2)      # B H M D
-        dt = v.dtype
-        count("matchformer/logit_bytes", b * hn * n * kv.shape[1] * 4)
-
-        def attend(qc, k, v):
-            logits = torch.matmul(qc.float(), k.float()) * self.scale
-            attn = torch.softmax(logits, dim=-1).to(dt)
-            return torch.matmul(attn.float(), v.float()).to(dt)
-
-        outs = []
-        for qc in q.split(QUERY_CHUNK, dim=2):
-            if torch.is_grad_enabled():
-                outs.append(checkpoint(attend, qc, k, v, use_reentrant=False))
-            else:
-                outs.append(attend(qc, k, v))
-        out = torch.cat(outs, dim=2).transpose(1, 2).reshape(b, n, self.dim)
+        q, k, v = self.q(x), self.k(kv), self.v(kv)
+        if v.dtype == torch.float32 and not torch.is_grad_enabled():
+            before = sr_ops.launches["sr_attention"]
+            out = sr_ops.sr_attention(q, k, v, self.nhead, self.scale)
+            fused = sr_ops.launches["sr_attention"] - before
+        else:
+            out = sr_ops.sr_attention_plain(q, k, v, self.nhead, self.scale)
+            fused = 0
+        count("matchformer/sr_queries", b * n)
+        count("matchformer/sr_fused", b * n * fused)
+        count("matchformer/logit_bytes",
+              0 if fused else b * self.nhead * n * kv.shape[1] * 4)
         return self.proj(out)
 
 

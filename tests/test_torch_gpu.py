@@ -908,7 +908,10 @@ def test_alt_matcher_forward_on_the_card_equals_the_cpu(arch):
     on one 256 px pair in fp32: the dense confidence within 1e-4 of its
     largest value and the mutual-NN match rows at IoU >= 0.99 (threshold
     0 for the random MatchFormer); the model runs on CUDA tensors, and the
-    fused kernels stay off its path."""
+    dual-softmax passes stay off its path. On the card ASpan's flow heads
+    and window attention and MatchFormer's SR attention run their own
+    kernels (ops/flow_expectation.py, ops/span_attention.py,
+    ops/sr_attention.py); on the CPU their plain chains."""
     _needs_cuda()
     from detectorfreesfm_tpu_torch.data.synthetic import (SyntheticConfig,
                                                           generate_scene)

@@ -36,6 +36,7 @@ from detectorfreesfm_tpu.models import build_matcher as jax_build  # noqa
 from detectorfreesfm_tpu.models import matchformer as jax_mf  # noqa: E402
 from detectorfreesfm_tpu_torch.models import build_matcher  # noqa: E402
 from detectorfreesfm_tpu_torch.models import matchformer  # noqa: E402
+from detectorfreesfm_tpu_torch.ops import sr_attention as sr_ops  # noqa: E402
 from detectorfreesfm_tpu_torch.utils import checkpoint  # noqa: E402
 from test_torch_aspan import (DTYPES, JAX_DT, TORCH_DT,  # noqa: E402
                               alt_train_step_runs, check_alt_train_step,
@@ -122,13 +123,13 @@ def test_sr_attention_recomputes_chunks_under_autograd(monkeypatch):
     """Under autograd every query chunk goes through
     torch.utils.checkpoint (JAX's jax.checkpoint); without it, none."""
     calls = []
-    real = matchformer.checkpoint
+    real = sr_ops.checkpoint
 
     def counting(fn, *args, **kw):
         calls.append(args[0].shape[2])
         return real(fn, *args, **kw)
 
-    monkeypatch.setattr(matchformer, "checkpoint", counting)
+    monkeypatch.setattr(sr_ops, "checkpoint", counting)
     x, src = _sr_inputs("two_chunks_self")
     mod = matchformer.SRAttention(64, 8, 8)
     tx = torch.from_numpy(x).requires_grad_()

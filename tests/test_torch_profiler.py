@@ -316,10 +316,11 @@ def test_aspan_spans_and_counters_only_in_a_session():
 def test_matchformer_spans_and_counter_only_in_a_session():
     """A 64 px MatchFormer pair (random weights): under a profiler the
     encoder and the dual-softmax are spanned once and the attention core
-    once a layer, 2 x (1 + 2 + 2) = 10, and the counter holds the fp32
-    logits of every layer, 2B x 8 heads x N x M x 4 bytes: stage grids
-    of 32, 16 and 8 cells a side, each pooled to 4 x 4 keys. With no
-    profiler the same forward records nothing."""
+    once a layer, 2 x (1 + 2 + 2) = 10; the counters hold the queries of
+    every layer (2B x N), none through the kernel (the CPU runs the plain
+    chain), and the fp32 logits the chain wrote, 2B x 8 heads x N x M x 4
+    bytes: stage grids of 32, 16 and 8 cells a side, each pooled to 4 x 4
+    keys. With no profiler the same forward records nothing."""
     from detectorfreesfm_tpu_torch.models import build_matcher
 
     torch.manual_seed(0)
@@ -338,8 +339,11 @@ def test_matchformer_spans_and_counter_only_in_a_session():
         "matcher/dual_softmax": 1}
     assert all(s["device_ms"] is None for s in snap["spans"].values())
     layers = {32 * 32: 2, 16 * 16: 4, 8 * 8: 4}
-    assert snap["counters"] == {"matchformer/logit_bytes": sum(
-        2 * 8 * n * 16 * 4 * k for n, k in layers.items())}
+    assert snap["counters"] == {
+        "matchformer/logit_bytes": sum(
+            2 * 8 * n * 16 * 4 * k for n, k in layers.items()),
+        "matchformer/sr_queries": sum(2 * n * k for n, k in layers.items()),
+        "matchformer/sr_fused": 0}
 
 
 def test_a_session_holds_only_its_own_spans():
