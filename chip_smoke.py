@@ -222,6 +222,16 @@ SR_LAYERS = {"stride2": 2, "stride4": 4, "stride8": 4}
 SR_FRAMES, SR_KEYS = 16, 2704
 SR_RAGGED = {"stride2": (884, 64, 12), "stride4": (884, 128, 48),
              "stride8": (884, 256, 221)}
+# EfficientLoFTR's aggregated attention through the same kernel, 8 heads
+# of 32: a step of 8 pairs at 832 px, its 26 x 26 aggregated queries
+# against as many pooled keys; (frames, queries, keys, channels) of a
+# self-attention launch (both sides at once) and of a cross launch (one
+# side: image 0, then image 1 on its update), and the launches of each a
+# step (4 layers). A forward launches the kernel 4 x (1 + 2) = 12 times.
+SR_ELOFTR = {"self": (16, 676, 676, 256), "cross": (8, 676, 676, 256)}
+SR_ELOFTR_LAUNCHES = {"self": 4, "cross": 8}
+SR_ELOFTR_PAIRS = 8
+ELOFTR_FORWARD_LAUNCHES = 12
 # Device kernels of csrc/dual_softmax.cu, as the profiler names them.
 DSM_KERNELS = ("pass1_kernel", "pass2_kernel", "combine1_kernel",
                "combine2_kernel")
@@ -457,17 +467,52 @@ def sr_inputs(frames, n, m, c, seed):
     return q, k, v, float(np.float32(1.0) / np.sqrt(np.float32(c // 8)))
 
 
+def _sr_at(frames, n, m, c, seed):
+    """The SR attention kernel against its plain chain at one shape: the
+    largest difference within 1e-5 of the chain's largest value, and its
+    time beside its bound (4 F N M C fp32 flops at PEAK_FP32_FLOPS: no
+    tensor cores), the plain chain's, and scaled_dot_product_attention's
+    on the same heads in fp32 (its memory-efficient kernel, the library's
+    yardstick, which the port never calls)."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from detectorfreesfm_tpu_torch.ops import sr_attention as S
+
+    q, k, v, scale = sr_inputs(frames, n, m, c, seed)
+    plain = S.sr_attention_plain(q, k, v, 8, scale)
+    err = (S.sr_attention(q, k, v, 8, scale) - plain).abs().max().item()
+    tol = 1e-5 * plain.abs().max().item()
+    del plain
+    check(err <= tol, "sr_attention vs plain", (frames, n, m, c), err, tol)
+    flops = 4.0 * frames * n * m * c
+    bound_ms = flops / PEAK_FP32_FLOPS * 1e3
+    ms = cuda_ms(lambda: S.sr_attention(q, k, v, 8, scale), 5)
+    heads = [t.reshape(frames, -1, 8, c // 8).transpose(1, 2)
+             for t in (q, k, v)]
+    try:
+        with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+            library_ms = cuda_ms(
+                lambda: torch.nn.functional.scaled_dot_product_attention(
+                    *heads, scale=scale), 2)
+    except RuntimeError as e:  # no library kernel for the shape
+        library_ms = f"not measured: {str(e)[:160]}"
+    return dict(frames=frames, n=n, m=m, c=c, max_abs_err=err, tol=tol,
+                ms=ms, flops=flops, bound_ms=bound_ms,
+                bound_by="operations (fp32 FFMA)",
+                share_of_bound=bound_ms / ms,
+                plain_ms=cuda_ms(lambda: S.sr_attention_plain(
+                    q, k, v, 8, scale), 2),
+                library_ms=library_ms)
+
+
 def check_sr_kernel(seed):
     """The SR attention kernel against its plain chain, 8 heads, within
     1e-5 of the chain's largest value: on a 26 x 34 query grid (2 frames)
-    with keys pooled by each stage's ratio, and at each stage's shape of
-    the cell's step; there, its time beside its bound (4 F N M C fp32
-    flops at PEAK_FP32_FLOPS: no tensor cores), the plain chain's, and
-    scaled_dot_product_attention's on the same heads in fp32 (its
-    memory-efficient kernel, the library's yardstick, which the port
-    never calls), and the ms a pair of the stage's layers."""
-    from torch.nn.attention import SDPBackend, sdpa_kernel
-
+    with keys pooled by each stage's ratio, at each stage's shape of the
+    MatchFormer cell's step and at EfficientLoFTR's self and cross
+    launches of a step; at those, its time beside its bound, the plain
+    chain's and the library's (`_sr_at`), and the ms a pair of the
+    stage's layers or the family's launches."""
     from detectorfreesfm_tpu_torch.ops import sr_attention as S
 
     out = {"ragged": {}}
@@ -483,38 +528,23 @@ def check_sr_kernel(seed):
             out["ragged"][stage] = dict(n=n, m=m, c=c, max_abs_err=err,
                                         tol=tol)
         for stage, (n, c) in SR_STAGES.items():
-            q, k, v, scale = sr_inputs(SR_FRAMES, n, SR_KEYS, c, seed)
-            plain = S.sr_attention_plain(q, k, v, 8, scale)
-            err = (S.sr_attention(q, k, v, 8, scale) -
-                   plain).abs().max().item()
-            tol = 1e-5 * plain.abs().max().item()
-            del plain
-            check(err <= tol, "sr_attention vs plain", stage, err, tol)
-            flops = 4.0 * SR_FRAMES * n * SR_KEYS * c
-            bound_ms = flops / PEAK_FP32_FLOPS * 1e3
-            ms = cuda_ms(lambda: S.sr_attention(q, k, v, 8, scale), 5)
-            heads = [t.reshape(SR_FRAMES, -1, 8, c // 8).transpose(1, 2)
-                     for t in (q, k, v)]
-            try:
-                with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
-                    library_ms = cuda_ms(
-                        lambda: torch.nn.functional.
-                        scaled_dot_product_attention(*heads, scale=scale), 2)
-            except RuntimeError as e:  # no library kernel for the shape
-                library_ms = f"not measured: {str(e)[:160]}"
-            out[stage] = dict(
-                frames=SR_FRAMES, n=n, m=SR_KEYS, c=c, max_abs_err=err,
-                tol=tol, ms=ms, flops=flops, bound_ms=bound_ms,
-                bound_by="operations (fp32 FFMA)",
-                share_of_bound=bound_ms / ms,
-                plain_ms=cuda_ms(lambda: S.sr_attention_plain(
-                    q, k, v, 8, scale), 2),
-                library_ms=library_ms,
-                ms_per_pair=ms * SR_LAYERS[stage] * 2 / SR_FRAMES)
-            del q, k, v, heads
+            out[stage] = _sr_at(SR_FRAMES, n, SR_KEYS, c, seed)
+            out[stage]["ms_per_pair"] = (out[stage]["ms"] *
+                                         SR_LAYERS[stage] * 2 / SR_FRAMES)
+        out["efficientloftr"] = {}
+        for launch, shape in SR_ELOFTR.items():
+            got = _sr_at(*shape, seed)
+            got["ms_per_pair"] = (got["ms"] * SR_ELOFTR_LAUNCHES[launch] /
+                                  SR_ELOFTR_PAIRS)
+            out["efficientloftr"][launch] = got
     out["ms_per_pair"] = sum(out[s]["ms_per_pair"] for s in SR_STAGES)
     out["bound_ms_per_pair"] = sum(
         out[s]["bound_ms"] * SR_LAYERS[s] * 2 / SR_FRAMES for s in SR_STAGES)
+    el = out["efficientloftr"]
+    el["ms_per_pair"] = sum(el[x]["ms_per_pair"] for x in SR_ELOFTR)
+    el["bound_ms_per_pair"] = sum(
+        el[x]["bound_ms"] * SR_ELOFTR_LAUNCHES[x] / SR_ELOFTR_PAIRS
+        for x in SR_ELOFTR)
     return out
 
 
@@ -3953,11 +3983,60 @@ def _check_alt_train_gates(got, ref):
           "alt matchformer step-0 loss", g["losses"][0], r["loss0"])
 
 
+def alt_efficientloftr(scene, work):
+    """EfficientLoFTR served through the engine on main's pairs (batches
+    of 2), its checkpoint (the program's init) loaded as the verb loads
+    it: the SR attention kernel's launches, counted from zero just before
+    the call and before 1 + 3 forwards of a batch, the dual-softmax
+    kernels' (none: the family is dense), and the batch's device ms."""
+    from detectorfreesfm_tpu_torch.match.engine import (EngineConfig,
+                                                        PairMatchingEngine)
+    from detectorfreesfm_tpu_torch.models import build_matcher
+    from detectorfreesfm_tpu_torch.ops import sr_attention
+    from detectorfreesfm_tpu_torch.utils.checkpoint import (
+        load_arch_params, save_checkpoint, state_dict_to_flax_variables)
+
+    _, images, pairs, _ = scene
+    ckpt = os.path.join(work, "efficientloftr_init.msgpack")
+    save_checkpoint(ckpt, state_dict_to_flax_variables(
+        build_matcher("efficientloftr").state_dict()))
+    batch = 2
+    engine = PairMatchingEngine(
+        EngineConfig(matcher="efficientloftr", img_resize=832,
+                     batch_size=batch),
+        load_arch_params(ckpt, "efficientloftr"))
+    reset_launches()
+    sr_attention.launches["sr_attention"] = 0
+    out = engine.match_pairs(pairs, images)
+    torch.cuda.synchronize()
+    served = sr_launches()
+    launches = read_launches()
+    sr_attention.launches["sr_attention"] = 0
+    ms = forward_ms(engine.model, images, pairs)
+    return dict(model=type(engine.model).__name__, pairs=len(pairs),
+                steps=-(-len(pairs) // batch), sr_launches=served,
+                forward_sr_launches=sr_launches(), launches=launches,
+                matches=sum(len(o["conf"]) for o in out.values()),
+                batch2_forward_ms_832px=ms)
+
+
+def check_alt_efficientloftr(el):
+    """Every EfficientLoFTR forward launches the SR attention kernel 12
+    times (once for both sides' self-attention and once for each side's
+    cross-attention, in each of 4 layers), and no dual-softmax pass."""
+    check(el["model"] == "EfficientLoFTRMatcher"
+          and el["launches"] == NO_LAUNCHES
+          and el["sr_launches"] == ELOFTR_FORWARD_LAUNCHES * el["steps"]
+          and el["forward_sr_launches"] == 4 * ELOFTR_FORWARD_LAUNCHES,
+          "alt: EfficientLoFTR through the engine", el)
+
+
 def alt_phase():
     """The alt phase on the card (see the section comment): (a) ASpan on
     main's pairs in fp32 and bf16, (b) run A with ASpan, (c) three
     train-matcher steps of each family, (d) the trained MatchFormer served
-    through the verb. Full report in build/smoke_alt/alt.json."""
+    through the verb, (e) EfficientLoFTR served through the engine on
+    main's pairs. Full report in build/smoke_alt/alt.json."""
     import contextlib
     import io
     import shutil
@@ -4082,6 +4161,11 @@ def alt_phase():
         forward_sr_launches=forward_sr, wall_s=wall,
         batch2_forward_ms_832px=mf_ms)
     laps["serve_s"] = time.time() - t0
+
+    # (e) EfficientLoFTR through the engine on main's pairs.
+    t0 = time.time()
+    report["serve_efficientloftr"] = alt_efficientloftr(main, work)
+    laps["serve_efficientloftr_s"] = time.time() - t0
     report.update(laps, alt_s=time.time() - t_phase)
     with open(os.path.join(work, "alt.json"), "w") as f:
         json.dump(dict(report, got=got), f, indent=1, default=float)
@@ -4114,6 +4198,7 @@ def alt_phase():
           and serve["sr_launches"] % serve["sr_layers"] == 0
           and serve["forward_sr_launches"] == 4 * serve["sr_layers"],
           "alt: the trained MatchFormer through the verb", serve)
+    check_alt_efficientloftr(report["serve_efficientloftr"])
     return report
 
 
@@ -4845,6 +4930,20 @@ def main():
                     "sr_launches"],
                 **{f"alt_train_{a}": g["sr_launches"]
                    for a, g in alt["train"].items()}},
+            "shape": dict(frames=k["frames"], n=k["n"], m=k["m"], c=k["c"]),
+            "max_abs_err": k["max_abs_err"], "ms": k["ms"],
+            "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
+            "bound_by": k["bound_by"], "library_ms": k["library_ms"]})
+    el = alt["serve_efficientloftr"]
+    for launch in SR_ELOFTR:
+        k = sr_k["efficientloftr"][launch]
+        kernels.append({
+            "name": f"sr_attention.efficientloftr_{launch}", "route": "cuda",
+            "source": "detectorfreesfm_tpu_torch/csrc/sr_attention.cu",
+            "replaces": None,  # EfficientLoFTR has no JAX counterpart
+            "launches": el["sr_launches"],
+            "launches_by_path": {
+                "alt_serve_efficientloftr": el["sr_launches"]},
             "shape": dict(frames=k["frames"], n=k["n"], m=k["m"], c=k["c"]),
             "max_abs_err": k["max_abs_err"], "ms": k["ms"],
             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],

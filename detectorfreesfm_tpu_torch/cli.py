@@ -55,14 +55,20 @@ and `--dtype-train bfloat16` (train-matcher, train-matcher-selfsup) trains
 it in bf16 on fp32 parameters, as the JAX verbs do; float32 is the
 default, and refinement stays float32 (models/loftr.py).
 
-`--matcher-arch aspan|matchformer --matcher-ckpt CKPT` (reconstruct,
-eval-dataset) matches with another family of models.build_matcher, dense
-whatever --fused says, as in JAX (every family computes its views once
-per engine call, match/engine.py; MatchFormer's encoder attends across
-the two images, so its views are its frames); these families have no
-bundled default (weights/demo_aspan_bf16.msgpack is an ASpan checkpoint),
-so the checkpoint must be named. `train-matcher --arch aspan|matchformer`
-trains them with the coarse focal loss, from a fresh init or --init-ckpt.
+`--matcher-arch aspan|matchformer|efficientloftr --matcher-ckpt CKPT`
+(reconstruct, eval-dataset) matches with another family of
+models.build_matcher, dense whatever --fused says, as in JAX (every
+family computes its views once per engine call, match/engine.py;
+MatchFormer's encoder attends across the two images, so its views are its
+frames); these families have no bundled default
+(weights/demo_aspan_bf16.msgpack is an ASpan checkpoint), so the
+checkpoint must be named. EfficientLoFTR (models/efficientloftr.py, the
+port alone: no JAX counterpart) runs in float32 only and always refines
+both keypoints with its own fine stage, whatever --match-type says; its
+published weights load once converted with
+models.efficientloftr.from_published. `train-matcher --arch
+aspan|matchformer` trains ASpan and MatchFormer with the coarse focal
+loss, from a fresh init or --init-ckpt.
 """
 
 from __future__ import annotations
@@ -220,7 +226,8 @@ def _run_scene(args) -> dict:
     elif matcher_ckpt:
         from .utils.checkpoint import load_arch_params
 
-        # ASpan / MatchFormer: the file held strictly to the arch's model.
+        # ASpan / MatchFormer / EfficientLoFTR: the file held strictly to
+        # the arch's model.
         matcher_params = load_arch_params(matcher_ckpt, arch)
     refiner_params = None
     refiner_ckpt = getattr(args, "refiner_ckpt", None)
@@ -593,9 +600,11 @@ def main(argv=None) -> int:
                         help="trained matcher checkpoint (.msgpack)")
         sp.add_argument("--matcher-arch", default="loftr",
                         dest="matcher_arch",
-                        choices=["loftr", "aspan", "matchformer"],
+                        choices=["loftr", "aspan", "matchformer",
+                                 "efficientloftr"],
                         help="matcher architecture family (alt archs need "
-                             "an explicit --matcher-ckpt)")
+                             "an explicit --matcher-ckpt; efficientloftr "
+                             "runs in float32 only)")
         sp.add_argument("--refiner-ckpt", default=None, dest="refiner_ckpt",
                         help="trained refiner checkpoint (.msgpack)")
         sp.add_argument("--min-inliers", type=int, default=30,

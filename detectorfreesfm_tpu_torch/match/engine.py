@@ -20,8 +20,10 @@ read, in batches of `batch_size` frames (the last padded with repeats),
 into a view store, and each step gathers its sides' views from the
 store, which the matcher's forward takes in place of frames (the pair
 stage alone, `match_views`). The LoFTR family's views hold the coarse
-and the fine maps, ASpan's the coarse map alone and MatchFormer's (its
-encoder attends across the two images) the frames. The store lives for
+and the fine maps, ASpan's the coarse map alone, MatchFormer's (its
+encoder attends across the two images) the frames and EfficientLoFTR's
+RepVGG's 1/8, 1/4 and 1/2 maps (77.5 MB a view at 832 px; its fine stage
+moves both images' keypoints off the cell grid). The store lives for
 one call and sizes itself by the matcher's bytes a view (`view_bytes`).
 Where a call's views do not fit half the card's free memory
 (CPU_STORE_VIEWS off the card), consecutive steps are taken in groups

@@ -17,13 +17,16 @@ import dataclasses
 LOFTR_FAMILY = ("loftr", "loftr_official", "detectorfree")
 ASPAN_NAMES = ("aspan", "aspanformer")
 MATCHFORMER_NAMES = ("matchformer",)
-MATCHER_NAMES = LOFTR_FAMILY + ASPAN_NAMES + MATCHFORMER_NAMES
+EFFICIENTLOFTR_NAMES = ("efficientloftr", "eloftr")
+MATCHER_NAMES = (LOFTR_FAMILY + ASPAN_NAMES + MATCHFORMER_NAMES
+                 + EFFICIENTLOFTR_NAMES)
 
 
 def build_matcher(name: str = "loftr", **overrides):
     """The matcher module for `name` (case-insensitive): "loftr" (and its
-    aliases "loftr_official", "detectorfree"), "aspan" ("aspanformer") or
-    "matchformer". Another name raises ValueError."""
+    aliases "loftr_official", "detectorfree"), "aspan" ("aspanformer"),
+    "matchformer" or "efficientloftr" ("eloftr"). Another name raises
+    ValueError."""
     name = name.lower()
     if name in LOFTR_FAMILY:
         from .loftr import DetectorFreeMatcher, MatcherConfig
@@ -39,4 +42,10 @@ def build_matcher(name: str = "loftr", **overrides):
 
         return MatchFormerMatcher(
             dataclasses.replace(MatchFormerConfig(), **overrides))
+    if name in EFFICIENTLOFTR_NAMES:
+        from .efficientloftr import (EfficientLoFTRConfig,
+                                     EfficientLoFTRMatcher)
+
+        return EfficientLoFTRMatcher(
+            dataclasses.replace(EfficientLoFTRConfig(), **overrides))
     raise ValueError(f"unknown matcher '{name}'")

@@ -48,8 +48,10 @@ class Linear(nn.Linear):
 class Conv2d(nn.Conv2d):
     def __init__(self, cin: int, cout: int, k: int, stride: int = 1,
                  padding: int = 0, bias: bool = True,
-                 compute_dtype: torch.dtype = torch.float32):
-        super().__init__(cin, cout, k, stride, padding=padding, bias=bias)
+                 compute_dtype: torch.dtype = torch.float32,
+                 groups: int = 1):
+        super().__init__(cin, cout, k, stride, padding=padding, bias=bias,
+                         groups=groups)
         self.compute_dtype = compute_dtype
 
     def forward(self, x):

@@ -23,10 +23,13 @@ is fp32 FFMA (the configuration keeps TF32 off): 4 N M C flops a frame,
 The kernel takes fp32 without autograd, head widths 8, 16 and 32 (the
 three stages of MatchFormerConfig's defaults); models/matchformer.py keeps
 the plain chain for training and for bf16, whose probabilities are rounded
-to bf16 before they weight the values. For CPU tensors `sr_attention` is
-the plain chain. There is no fallback from the kernel to the plain chain:
-a CUDA input the kernel cannot take raises. `launches` counts the kernel's
-launches.
+to bf16 before they weight the values. Its second user is
+models/efficientloftr.py's aggregated attention: 8 heads of 32 over the
+4x4-aggregated 1/8 grid, N = M = 676 at 832 px (B = 2 x 8 frames in
+self-attention, 8 in cross), after the rotary embedding of q and k. For
+CPU tensors `sr_attention` is the plain chain. There is no fallback from
+the kernel to the plain chain: a CUDA input the kernel cannot take
+raises. `launches` counts the kernel's launches.
 """
 
 from __future__ import annotations

@@ -65,7 +65,8 @@ _ENGINE_CACHE: dict = {}
 @dataclasses.dataclass
 class PipelineConfig:
     # matching
-    matcher: str = "loftr"  # models.build_matcher: loftr, aspan, matchformer
+    matcher: str = "loftr"  # models.build_matcher: loftr, aspan,
+    # matchformer, efficientloftr
     img_resize: int = 832
     match_threshold: float = 0.2
     max_matches: int = 2048

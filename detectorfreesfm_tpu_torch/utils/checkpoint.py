@@ -218,7 +218,10 @@ def load_arch_params(path: str, arch: str) -> Dict[str, torch.Tensor]:
     checkpoints into a template of the model (whose leaves do not depend
     on the compute dtype). Strict: a leaf the template lacks, or a
     parameter the file lacks, raises (so does a checkpoint of another
-    arch)."""
+    arch). EfficientLoFTR, which the JAX package lacks, loads the same
+    way; its published weights (transformers' names) convert with
+    models.efficientloftr.from_published and state_dict_to_flax_variables
+    into such a file."""
     from ..models import build_matcher
 
     state = flax_variables_to_state_dict(read_variables(path))

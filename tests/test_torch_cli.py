@@ -77,6 +77,9 @@ R5 = os.path.join(REPO, "weights", "demo_matcher_r5_bf16.msgpack")
     (["--matcher-arch", "aspan", "--matcher-ckpt", R5], "does not fit"),
     (["--matcher-arch", "matchformer", "--matcher-ckpt",
       chip_smoke.ASPAN_WEIGHTS], "does not fit"),
+    (["--matcher-arch", "efficientloftr"], "needs an explicit --matcher-ckpt"),
+    (["--matcher-arch", "efficientloftr", "--matcher-ckpt",
+      chip_smoke.ASPAN_WEIGHTS], "does not fit"),
 ])
 def test_verb_refuses_what_is_not_ported(tmp_path, extra, match):
     """As the JAX verb: another family without --matcher-ckpt exits (the
@@ -96,7 +99,7 @@ def test_engine_and_pipeline_configs_refuse_what_is_not_ported():
     from detectorfreesfm_tpu_torch.match.engine import EngineConfig
 
     # Every family of build_matcher is ported; an unknown name raises.
-    for name in ("loftr", "aspan", "matchformer"):
+    for name in ("loftr", "aspan", "matchformer", "efficientloftr"):
         assert EngineConfig(matcher=name).matcher == name
     with pytest.raises(ValueError, match="unknown matcher"):
         EngineConfig(matcher="superglue")

@@ -951,6 +951,65 @@ def test_alt_matcher_forward_on_the_card_equals_the_cpu(arch):
 
 
 @pytest.mark.cuda
+def test_efficientloftr_forward_on_the_card_equals_the_cpu():
+    """EfficientLoFTR at its published widths on one 256 px pair in fp32,
+    on seeded weights with BatchNorm statistics set on the pair's frames
+    by the plain reference (portbench/reference/efficientloftr.py's
+    seeded_weights), threshold 0: on the card
+    and on the CPU the dense confidence within 1e-4 of its largest value,
+    the match cells at IoU >= 0.99, and both keypoints of the matches in
+    both within 1e-3 px, but for at most one whose first fine stage picked
+    another cell of a near-equal pair (seen on the benchmark's cell at
+    ~1e-4 of the slots). Under a profiler every aggregated query on the
+    card runs through the kernel of ops/sr_attention.py (the benchmark's
+    agg_fused_pct of 100), none on the CPU."""
+    _needs_cuda()
+    import sys
+
+    sys.path.insert(0, REPO)
+    from torch.profiler import ProfilerActivity, profile
+
+    from detectorfreesfm_tpu_torch.data.synthetic import (SyntheticConfig,
+                                                          generate_scene)
+    from detectorfreesfm_tpu_torch.models import build_matcher
+    from detectorfreesfm_tpu_torch.utils import profiler
+    from detectorfreesfm_tpu_torch.utils.checkpoint import (
+        flax_variables_to_state_dict)
+    from portbench import harness
+    from portbench.reference.efficientloftr import seeded_weights
+
+    imgs = generate_scene(0, SyntheticConfig(size=256, n_views=3))[0]
+    x = torch.from_numpy(imgs[..., None])
+    model = build_matcher("efficientloftr", match_threshold=0.0)
+    model.load_state_dict(flax_variables_to_state_dict(seeded_weights(
+        harness.load_json("configs", "efficientloftr"), 2 ** 31 + 3,
+        x[[0, 0], ..., 0], x[[1, 2], ..., 0])))
+    model.eval()
+    out = {}
+    for dev in ("cpu", "cuda"):
+        model.to(dev)
+        with profile(activities=[ProfilerActivity.CPU]), torch.no_grad():
+            m, conf = model(x[:1].to(dev), x[1:2].to(dev), return_conf=True)
+        counters = profiler.snapshot()["counters"]
+        v = m.valid[0].cpu()
+        cells = (m.coords0[0][v].cpu() / 8).round().long()
+        keys = (cells[:, 1] * 32 + cells[:, 0]).tolist()
+        out[dev] = ({k: (m.coords0[0][v][i].cpu(), m.coords1[0][v][i].cpu())
+                     for i, k in enumerate(keys)}, conf.cpu(), counters)
+    (cpu, cpu_conf, cpu_n), (gpu, gpu_conf, gpu_n) = out["cpu"], out["cuda"]
+    assert cpu_n["eloftr/attn_fused"] == 0 < cpu_n["eloftr/attn_queries"]
+    assert gpu_n["eloftr/attn_fused"] == gpu_n["eloftr/attn_queries"] > 0
+    assert float((gpu_conf - cpu_conf).abs().max()) <= 1e-4 * float(
+        cpu_conf.max())
+    assert len(cpu) > 40
+    both = cpu.keys() & gpu.keys()
+    assert len(both) / len(cpu.keys() | gpu.keys()) >= 0.99
+    gaps = [max(float((a - b).abs().max()) for a, b in zip(cpu[k], gpu[k]))
+            for k in both]
+    assert sum(g > 1e-3 for g in gaps) <= 1
+
+
+@pytest.mark.cuda
 def test_trace_shows_both_passes_inside_match_forward(tmp_path):
     """utils.profiler.trace_to of one fused batch (2 pairs at 256 px):
     the Chrome trace holds the engine's `engine/match_forward` range and,

@@ -346,6 +346,37 @@ def test_matchformer_spans_and_counter_only_in_a_session():
         "matchformer/sr_fused": 0}
 
 
+def test_efficientloftr_spans_and_counters_only_in_a_session():
+    """A 64 px EfficientLoFTR pair (random weights, an 8 x 8 grid
+    aggregated to 2 x 2): under a profiler RepVGG is spanned once (both
+    frames in one batch), the aggregated attention once a module call,
+    4 layers x (self over both frames + 2 cross) = 12, and the
+    dual-softmax, the fine fusion and the fine stage once each; the
+    counters hold the aggregated queries of every call, 4 layers x (2 x 4
+    + 4 + 4), none through the kernel (the CPU runs the plain chain).
+    With no profiler the same forward records nothing."""
+    from detectorfreesfm_tpu_torch.models import build_matcher
+
+    torch.manual_seed(0)
+    model = build_matcher("efficientloftr").eval()
+    x0, x1 = (torch.from_numpy(im)[None, ..., None]
+              for im in _scene()[1][:2])
+    TPR.reset()
+    with torch.no_grad():
+        model(x0, x1)
+    assert TPR.snapshot() == {"spans": {}, "counters": {}}
+    with _session(), torch.no_grad():
+        model(x0, x1)
+    snap = TPR.snapshot()
+    assert {n: s["calls"] for n, s in snap["spans"].items()} == {
+        "matcher/repvgg": 1, "matcher/aggregated_attention": 12,
+        "matcher/dual_softmax": 1, "matcher/fine_fusion": 1,
+        "matcher/fine": 1}
+    assert all(s["device_ms"] is None for s in snap["spans"].values())
+    assert snap["counters"] == {"eloftr/attn_queries": 4 * (2 * 4 + 4 + 4),
+                                "eloftr/attn_fused": 0}
+
+
 def test_a_session_holds_only_its_own_spans():
     """Engine calls in two profiler sessions, and between them: the second
     session's snapshot holds its own call alone."""
